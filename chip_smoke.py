@@ -7,21 +7,30 @@ In order, and any failure exits non-zero:
   1. prints the card's name and power limit, the torch and CUDA versions, and
      the TF32 flags (both set False for the whole run, so that float32
      convolutions and matmuls are full float32);
-  2. builds every CUDA kernel of the main path from the sources in the
-     checkout and prints the build time and nvcc's register report;
-  3. holds each kernel to its plain PyTorch version on the card, on
-     synthetic and real initial states, in float32 and bfloat16;
-  4. times one RHS call at the main path's shape (24-DOF, 16 envs): its
-     device time (torch.profiler over back-to-back calls, in turns plain,
-     kernel, kernel, plain), which the kernels' record reports as `ms`, and
-     one call alone with the wrapper's host work (CUDA events), `call_ms`;
-     and the bound, from the bytes and operations the call needs;
-  5. drives the main path: `repro_torch.launch.rl_train` trains 2 PPO
-     iterations of `hit_les_24dof` with 16 envs and evaluates once, and the
-     kernel's launch count over that run must be exactly what the episode
-     arithmetic says (3 episodes x 50 steps x 13 substeps x 5 stages);
-     then profiles one RL step and one PPO epoch (torch.profiler) to show
-     where the main path's time goes;
+  2. builds every CUDA kernel of both paths from the sources in the checkout
+     (one nvcc per source, all started together) and prints each build's
+     time and nvcc's register report;
+  3. holds each kernel to its plain PyTorch version on the card, in float32
+     and bfloat16: the fused RHS on synthetic and real HIT states; the three
+     channel kernels at the channel path's shapes and beyond; then one RL
+     interval of each scenario on the kernel path against the staged plain
+     path;
+  4. times each kernel at its path's shape (16 envs): its device time
+     (torch.profiler over back-to-back calls, in turns plain, kernel, kernel,
+     plain), which the kernels' record reports as `ms`; one call alone with
+     the wrapper's host work (CUDA events), `call_ms`; the same two for the
+     plain version and, where one PyTorch call computes the same function,
+     for that call; and the bound, from the bytes and operations the call
+     needs;
+  5. drives both paths through `repro_torch.launch.rl_train`, each with every
+     launch count set to 0 just before it and read just after:
+     `hit_les_24dof` (2 PPO iterations + 1 evaluation, 16 envs) must launch
+     the fused RHS exactly 3 episodes x 50 steps x 13 substeps x 5 stages
+     times, and `channel_wm` (1 iteration + 1 evaluation, 16 envs) must
+     launch dg_derivative3 and smagorinsky_nut exactly 2 x 20 x 26 x 5
+     times and wall_model_tau twice that (one call per wall); then profiles
+     one RL step of each and one HIT PPO epoch (torch.profiler) to show
+     where the time goes;
   6. prints one JSON line per the kernels' record, then the last line
      `{"ok": true, "device": {...}}`.
 
@@ -29,6 +38,7 @@ It needs a CUDA device and the repository's `src/` beside it.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import os
@@ -54,6 +64,9 @@ PEAK_FP32_PER_S = 67e12
 #     (relative step 2^-8 = 3.9e-3 of the value); 4e-2 is the JAX package's
 #     own bf16 gate (tests/test_kernel_parity.py).
 TOL = {"float32": 1e-4, "bfloat16": 4e-2}
+# The two elementwise channel kernels compute one short formula per point in
+# float32 from the same inputs as their plain versions: float32 1e-5.
+TOL_ELEMENTWISE = {"float32": 1e-5, "bfloat16": 4e-2}
 
 
 def ns_rhs_operations(batch: int, kx: int, ky: int, kz: int, n: int) -> int:
@@ -86,19 +99,46 @@ def ns_rhs_operations(batch: int, kx: int, ky: int, kz: int, n: int) -> int:
             + 5 * n3)              # node weights w_i w_j w_k / 8
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(label: str, n_bytes: int, ops: int) -> tuple[float, str]:
+    """Least time for one call: `n_bytes` (each input read once, each output
+    written once) at the memory rate against `ops` at the float32 peak; the
+    larger term bounds."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    print(f"bound {label}: {n_bytes} bytes -> {t_bytes * 1e3:.7f} ms; {ops} "
+          f"fp32 ops -> {t_ops * 1e3:.7f} ms")
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def rhs_bound_ms(u, cs, d_matrix, w) -> tuple[float, str]:
-    """Least time for one call: each input read once, the output written once,
-    against the operations at the float32 peak; the larger term bounds."""
-    nbytes = (2 * u.numel() * u.element_size()
-              + sum(t.numel() * t.element_size() for t in (cs, d_matrix, w)))
     kx, ky, kz, n = u.shape[-7], u.shape[-6], u.shape[-5], u.shape[-2]
     ops = ns_rhs_operations(u.numel() // (kx * ky * kz * n**3 * 5),
                             kx, ky, kz, n)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
-    print(f"bound: {nbytes} bytes -> {t_bytes * 1e3:.6f} ms; {ops} fp32 ops "
-          f"-> {t_ops * 1e3:.6f} ms")
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms("fused RHS", 2 * nbytes(u) + nbytes(cs, d_matrix, w),
+                    ops)
+
+
+def dg_derivative3_operations(u) -> int:
+    """n multiply-adds for each value of each of the three derivatives."""
+    return 3 * 2 * u.shape[1] * u.numel()
+
+
+def smagorinsky_operations(p: int) -> int:
+    """Per point: the 3 off-diagonal entries of S (2 each), S:S from 6 squares
+    with the 3 off-diagonal ones doubled and 5 adds (14), x2 + 1e-30 (2),
+    sqrt, (C_s Delta)^2 (2), times |S|."""
+    return p * (6 + 14 + 2 + 1 + 2 + 1)
+
+
+def wall_model_operations(p: int, iters: int) -> int:
+    """Per point: the laminar guess (4), per round y+ (2), Reichardt's u+
+    (13, each transcendental counted as 1), the floor, the update (4); then
+    rho u_tau^2 (2).  The rounds do not end early."""
+    return p * (4 + iters * (2 + 13 + 1 + 4) + 2)
 
 
 def synthetic_state(gen, shape_prefix, cfg, device):
@@ -143,9 +183,14 @@ def traced(fn) -> tuple[float, list[tuple[float, int, str]]]:
     return wall_ms, rows
 
 
+# the device functions of the port's own kernels, as the trace names them
+OWN_KERNELS = ("grad_pass", "div_pass", "dg_derivative3_kernel",
+               "smagorinsky_kernel", "wall_model_kernel")
+
+
 def profile_window(label: str, fn, card: str) -> None:
-    """Device busy time and the top kernels of one call of `fn`; "not
-    measured" where the trace shows no device time."""
+    """Device busy time, the top kernels and the port's own kernels of one
+    call of `fn`; "not measured" where the trace shows no device time."""
     wall_ms, rows = traced(fn)
     if not rows:
         print(f"profile {label}: wall {wall_ms:.3f} ms; device time not "
@@ -157,6 +202,14 @@ def profile_window(label: str, fn, card: str) -> None:
           f"{sum(r[1] for r in rows)} kernel launches")
     for dev_us, count, key in rows[:6]:
         print(f"  {dev_us / 1e3:9.3f} ms {count:6d} x {key[:90]}")
+    for own in OWN_KERNELS:
+        mine = [r for r in rows if own in r[2]]
+        if mine:
+            dev_ms = sum(r[0] for r in mine) / 1e3
+            count = sum(r[1] for r in mine)
+            print(f"  port kernel {own}: {count} launches, {dev_ms:.3f} ms "
+                  f"({dev_ms / count:.7f} ms each, "
+                  f"{100 * dev_ms / busy_ms:.2f}% of device busy)")
 
 
 def device_ms(fn, calls: int) -> float:
@@ -193,6 +246,98 @@ def ptxas_report(log: str) -> list[str]:
     return lines
 
 
+def time_calls(calls: dict, windows: int = 50, alone: int = 25
+               ) -> tuple[dict, dict]:
+    """Per named zero-argument call: its device time per call (profiler over
+    `windows` back-to-back calls, one window each in the order of `calls`
+    and again in reverse, e.g. plain, kernel, kernel, plain; the mean of
+    the two), and one call alone with its host work (median of `alone`
+    CUDA-event windows, the calls in turns)."""
+    import torch
+
+    for _ in range(3):  # warm-up
+        for f in calls.values():
+            f()
+    torch.cuda.synchronize()
+    alone_times: dict[str, list[float]] = {k: [] for k in calls}
+    for _ in range(alone):
+        for name, f in calls.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            f()
+            end.record()
+            end.synchronize()
+            alone_times[name].append(start.elapsed_time(end))
+    dev_times: dict[str, list[float]] = {k: [] for k in calls}
+    for name in list(calls) + list(reversed(calls)):
+        dev_times[name].append(device_ms(calls[name], windows))
+    for name in calls:
+        print(f"  {name}: device time {statistics.mean(dev_times[name]):.7f} "
+              f"ms ({', '.join(f'{t:.7f}' for t in dev_times[name])}); one "
+              f"call alone {statistics.median(alone_times[name]):.7f} ms")
+    return ({k: statistics.mean(v) for k, v in dev_times.items()},
+            {k: statistics.median(v) for k, v in alone_times.items()})
+
+
+def parity(label: str, got, want, tol: float) -> float:
+    """max |got - want|, checked against tol * max |want|; raises on a miss."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{label}: kernel output {got.dtype} "
+                             f"{tuple(got.shape)}, plain {want.dtype} "
+                             f"{tuple(want.shape)}")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    ok = math.isfinite(err) and err <= tol * scale
+    print(f"parity {label}: max|d|={err:.3e} max|plain|={scale:.3e} "
+          f"rel={err / scale:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{label}")
+    return err
+
+
+def train(env_name: str, n_iter: int, counters: list) -> tuple:
+    """`rl_train` on `env_name` with 16 envs, `n_iter` PPO iterations and an
+    evaluation after the last; every counter in `counters` is set to 0 just
+    before and read just after.  Returns (history, launches, wall s,
+    checkpoint step), after checking returns and the checkpoint."""
+    import torch
+
+    from repro_torch.core import checkpoints
+    from repro_torch.launch import rl_train
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        history = rl_train.main([
+            "--env", env_name, "--n-envs", "16", "--iterations", str(n_iter),
+            "--eval-every", str(n_iter), "--checkpoint-dir", ckpt])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = [fn.launches for fn in counters]
+        step = checkpoints.latest_step(ckpt)
+    for rec in history:
+        print(f"{env_name} iteration {rec['iteration']}: t_sample_s="
+              f"{rec['t_sample_s']:.3f} t_update_s={rec['t_update_s']:.3f} "
+              f"return_norm={rec['return_norm']:.6f}"
+              + (f" eval_return_norm={rec['eval_return_norm']:.6f}"
+                 if "eval_return_norm" in rec else ""))
+    if len(history) != n_iter:
+        raise AssertionError(f"{len(history)} iterations, wanted {n_iter}")
+    for rec in history:
+        for key in ("return_norm",) + (("eval_return_norm",)
+                                       if "eval_return_norm" in rec else ()):
+            if not (math.isfinite(rec[key]) and -1.0 <= rec[key] <= 1.0):
+                raise AssertionError(f"{key}={rec[key]} not in [-1, 1]")
+    if "eval_return_norm" not in history[-1]:
+        raise AssertionError("the evaluation episode did not run")
+    if step != n_iter:
+        raise AssertionError(f"no checkpoint of step {n_iter} (got {step})")
+    return history, launches, wall, step
+
+
 def main() -> int:
     import torch
 
@@ -206,14 +351,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, src)
     from repro_torch import envs
-    from repro_torch.cfd import initial
+    from repro_torch.cfd import channel, equations, gll, initial
     from repro_torch.cfd.solver import HITConfig
     from repro_torch.configs import relexi_hit
-    from repro_torch.core import checkpoints, ppo
+    from repro_torch.core import ppo
     from repro_torch.core.orchestrator import FleetConfig
     from repro_torch.core.runner import Runner
-    from repro_torch.kernels import _build, rhs
-    from repro_torch.launch import rl_train
+    from repro_torch.kernels import (_build, dg_derivative, rhs, smagorinsky,
+                                     wall_model)
 
     dev = torch.device("cuda", 0)
     # --- 1. the card and the numerics flags ---------------------------------
@@ -230,12 +375,25 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32}")
 
-    # --- 2. build ------------------------------------------------------------
+    # --- 2. build: one nvcc per source, all started together -----------------
+    modules = (rhs, dg_derivative, smagorinsky, wall_model)
+
+    def build(source: str) -> float:
+        t0 = time.perf_counter()
+        _build.build(source)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    _build.load(rhs._SOURCE)
-    print(f"built {rhs._SOURCE} in {time.perf_counter() - t0:.2f} s")
-    for line in ptxas_report(_build.build_logs.get(rhs._SOURCE, "")):
-        print("  ptxas:", line)
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
+        build_s = dict(zip((m._SOURCE for m in modules),
+                           pool.map(build, (m._SOURCE for m in modules))))
+    print(f"built {len(modules)} sources in {time.perf_counter() - t0:.2f} s "
+          f"wall, in parallel")
+    for source, secs in build_s.items():
+        _build.load(source)
+        print(f"built {source} in {secs:.2f} s")
+        for line in ptxas_report(_build.build_logs.get(source, "")):
+            print("  ptxas:", line)
 
     # --- 3. kernel vs plain on the card --------------------------------------
     gen = torch.Generator().manual_seed(0)
@@ -247,10 +405,9 @@ def main() -> int:
     bank_gen = torch.Generator(device=dev).manual_seed(1)
     states.append(("24-DOF bank", initial.make_state_bank(
         bank_gen, relexi_hit.HIT24, 4), relexi_hit.HIT24))
-    main_err = None
+    errs = {}
     for name, u, cfg in states:
         ops, kw = rhs_kwargs(cfg, dev)
-        n = cfg.n_poly + 1
         cs_elem = 0.5 * torch.rand(u.shape[:-4], generator=gen)
         cs = cs_elem[..., None, None, None].expand(u.shape[:-1]).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
@@ -259,25 +416,61 @@ def main() -> int:
             got = rhs.fused_navier_stokes_rhs(ud, csd, d_mat, w, **kw)
             torch.cuda.synchronize()
             want = rhs.navier_stokes_rhs_plain(ud, csd, d_mat, w, **kw)
-            if got.dtype != dtype or got.shape != u.shape:
-                raise AssertionError(f"kernel output {got.dtype} "
-                                     f"{tuple(got.shape)}, want {dtype} "
-                                     f"{tuple(u.shape)}")
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
             tname = str(dtype).split(".")[-1]
-            ok = math.isfinite(err) and err <= TOL[tname] * scale
-            print(f"parity {name:14s} n={n} B={u.shape[0]:2d} {tname:8s} "
-                  f"max|d|={err:.3e} max|plain|={scale:.3e} "
-                  f"rel={err / scale:.3e} (tol {TOL[tname]:g}) "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"fused RHS kernel disagrees ({name}, "
-                                     f"{tname})")
+            err = parity(f"fused RHS {name} n={cfg.n_poly + 1} "
+                         f"B={u.shape[0]} {tname}", got, want, TOL[tname])
             if name == "24-DOF" and dtype == torch.float32:
-                main_err = err
+                errs["fused_navier_stokes_rhs"] = err
 
-    # one RL interval of a 24-DOF env: the kernel path vs the staged plain
+    # the three channel kernels: the channel path's shapes first (16 envs)
+    chan = envs.make("channel_wm").cfg
+    kx, ky, kz = chan.n_elem
+    n = chan.n
+    p_nodes = 16 * kx * ky * kz * n**3           # 36,864 nodes
+    p_wall = 16 * kx * kz * n * n                # 2,304 wall-face columns
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[-1]
+        for label, b, nn, c in (("channel", 16 * kx * ky * kz, n, 4),
+                                ("HIT n=6", 16 * 64, 6, 4),
+                                ("C=5", 16 * kx * ky * kz, n, 5)):
+            u = torch.randn((b, nn, nn, nn, c), generator=gen).to(dev, dtype)
+            d = torch.as_tensor(gll.lagrange_derivative_matrix(nn - 1),
+                                dtype=torch.float32, device=dev)
+            got = dg_derivative.dg_derivative3(u, d)
+            torch.cuda.synchronize()
+            want = dg_derivative.dg_derivative3_plain(u, d)
+            err = max(parity(f"dg_derivative3 {label} {tuple(u.shape)} "
+                             f"{tname} du{i}", g, w_, TOL[tname])
+                      for i, (g, w_) in enumerate(zip(got, want)))
+            if label == "channel" and dtype == torch.float32:
+                errs["dg_derivative3"] = err
+        g = torch.randn((p_nodes, 3, 3), generator=gen).to(dev, dtype)
+        cs = torch.full((p_nodes,), chan.cs_sgs, device=dev, dtype=dtype)
+        got = smagorinsky.smagorinsky_nut(g, cs, chan.delta_filter)
+        torch.cuda.synchronize()
+        err = parity(f"smagorinsky_nut P={p_nodes} {tname}", got,
+                     smagorinsky.smagorinsky_nut_plain(g, cs,
+                                                       chan.delta_filter),
+                     TOL_ELEMENTWISE[tname])
+        if dtype == torch.float32:
+            errs["smagorinsky_nut"] = err
+        # matching-point speeds across the viscous sublayer and the log layer
+        up = torch.logspace(-3, math.log10(1.6), p_wall).to(dev, dtype)
+        rho = (0.9 + 0.2 * torch.rand((p_wall,), generator=gen)).to(dev, dtype)
+        for cfg_name in ("channel_wm", "channel_wm_hre"):
+            c = envs.make(cfg_name).cfg
+            kw = dict(y_m=0.5 * c.dxs[1], nu=c.nu, kappa=c.kappa,
+                      iters=c.wm_iters)
+            got = wall_model.wall_model_tau(up, rho, **kw)
+            torch.cuda.synchronize()
+            err = parity(f"wall_model_tau P={p_wall} iters={c.wm_iters} "
+                         f"nu={c.nu} {tname}", got,
+                         wall_model.wall_model_tau_plain(up, rho, **kw),
+                         TOL_ELEMENTWISE[tname])
+            if cfg_name == "channel_wm" and dtype == torch.float32:
+                errs["wall_model_tau"] = err
+
+    # one RL interval of each scenario: the kernel path vs the staged plain
     # assembly, both on the card
     env = envs.make("hit_les_24dof")
     state, _ = env.reset_from_bank(states[-1][1], torch.tensor([0], device=dev))
@@ -285,126 +478,173 @@ def main() -> int:
     u_ker = env.step(state, action).state.u
     u_ref = envs.make("hit_les_24dof", use_kernels=False).step(
         state, action).state.u
-    err = (u_ker - u_ref).abs().max().item()
-    scale = u_ref.abs().max().item()
-    print(f"parity one 24-DOF RL interval ({env.cfg.n_substeps * 5} RHS "
-          f"calls), kernel path vs staged plain path: max|d|={err:.3e} "
-          f"rel={err / scale:.3e} (tol {TOL['float32']:g})")
-    if not err <= TOL["float32"] * scale:
-        raise AssertionError("24-DOF env step on the kernel path disagrees")
+    parity(f"one 24-DOF RL interval ({env.cfg.n_substeps * 5} RHS calls), "
+           f"kernel path vs staged plain path", u_ker, u_ref, TOL["float32"])
+    chan_env = envs.make("channel_wm")
+    chan_bank = chan_env.initial_state_bank(
+        torch.Generator(device=dev).manual_seed(2), 16)
+    chan_state, _ = chan_env.reset_from_bank(chan_bank,
+                                             torch.arange(16, device=dev))
+    chan_action = 0.5 + torch.rand((16, chan_env.action_spec.n_elements),
+                                   generator=gen).to(dev)
+    u_ker = chan_env.step(chan_state, chan_action).state.u
+    u_ref = envs.make("channel_wm", use_kernels=False).step(
+        chan_state, chan_action).state.u
+    parity(f"one channel_wm RL interval of 16 envs ({chan.n_substeps * 5} "
+           f"RHS calls), kernel path vs staged plain path", u_ker, u_ref,
+           TOL["float32"])
 
-    # --- 4. time one RHS call at the main path's shape ------------------------
+    # --- 4. time each kernel at its path's shape (16 envs, float32) ----------
+    record = {}
     _, u24, cfg24 = states[0]
     ops, kw = rhs_kwargs(cfg24, dev)
     cs24 = torch.full(u24.shape[:-1], 0.17, device=dev)
     args = (u24, cs24, ops["D"], ops["w"])
-    calls = {"plain": rhs.navier_stokes_rhs_plain,
-             "kernel": rhs.fused_navier_stokes_rhs}
-    for _ in range(3):  # warm-up
-        for f in calls.values():
-            f(*args, **kw)
-    torch.cuda.synchronize()
-    # one call alone, host work included: median of 25 CUDA-event windows
-    call_times: dict[str, list[float]] = {k: [] for k in calls}
-    for _ in range(25):
-        for name, f in calls.items():  # in turns: plain, kernel
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            f(*args, **kw)
-            end.record()
-            end.synchronize()
-            call_times[name].append(start.elapsed_time(end))
-    call_ms = {k: statistics.median(v) for k, v in call_times.items()}
-    # device time per call: plain, kernel, kernel, plain; 50 calls a window
-    dev_times: dict[str, list[float]] = {k: [] for k in calls}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        dev_times[name].append(device_ms(
-            lambda f=calls[name]: f(*args, **kw), 50))
-    ms = {k: statistics.mean(v) for k, v in dev_times.items()}
-    bound_ms, bound_by = rhs_bound_ms(*args)
-    print(f"time per RHS call, 24-DOF B=16 float32 ({card}): device time "
-          f"(profiler, 2 windows of 50 calls each) kernel {ms['kernel']:.6f} "
-          f"ms ({', '.join(f'{t:.6f}' for t in dev_times['kernel'])}), "
-          f"plain {ms['plain']:.6f} ms "
-          f"({', '.join(f'{t:.6f}' for t in dev_times['plain'])}); one call "
-          f"alone (median of 25 CUDA-event windows) kernel "
-          f"{call_ms['kernel']:.6f} ms, plain {call_ms['plain']:.6f} ms; "
-          f"bound {bound_ms:.6f} ms by {bound_by} -> device time at "
-          f"{100 * bound_ms / ms['kernel']:.2f}% of the bound's speed")
-    print("library call: none, no single PyTorch call computes this RHS")
+    print(f"time per call ({card}), fused RHS 24-DOF B=16 float32:")
+    ms, call_ms = time_calls({
+        "plain": lambda: rhs.navier_stokes_rhs_plain(*args, **kw),
+        "kernel": lambda: rhs.fused_navier_stokes_rhs(*args, **kw)})
+    record["fused_navier_stokes_rhs"] = dict(
+        ms=ms, call_ms=call_ms, library_ms=None, bound=rhs_bound_ms(*args))
+    print("  library call: none, no single PyTorch call computes this RHS")
 
-    # --- 5. the main path ----------------------------------------------------
-    cfg = env.cfg
+    # the channel kernels on the operands of the path: a bank state's
+    # primitives, its gradient, its wall-face columns
+    chan_ops = chan.operators(dev)
+    rho_c, vel_c, _, temp_c = equations.conservative_to_primitive(
+        chan_bank)
+    q = torch.cat([vel_c, temp_c[..., None]], dim=-1).reshape(
+        (-1, n, n, n, 4)).contiguous()
+    d = chan_ops["D"]
+    kron = torch.kron
+    eye = torch.eye(n, device=dev)
+    k_mat = torch.cat([kron(kron(d, eye), eye), kron(kron(eye, d), eye),
+                       kron(kron(eye, eye), d)])  # (3 n^3, n^3)
+    q_lines = q.view(q.shape[0], n**3, 4)
+    print(f"time per call ({card}), dg_derivative3 {tuple(q.shape)} float32:")
+    ms, call_ms = time_calls({
+        "plain": lambda: dg_derivative.dg_derivative3_plain(q, d),
+        "kernel": lambda: dg_derivative.dg_derivative3(q, d),
+        "library": lambda: torch.matmul(k_mat, q_lines)})
+    lib_out = torch.matmul(k_mat, q_lines).view(q.shape[0], 3, n, n, n, 4)
+    for i, ref in enumerate(dg_derivative.dg_derivative3_plain(q, d)):
+        parity(f"library call torch.matmul(K, u) du{i} vs plain",
+               lib_out[:, i].contiguous(), ref, TOL["float32"])
+    record["dg_derivative3"] = dict(
+        ms=ms, call_ms=call_ms, library_ms=ms["library"],
+        bound=bound_ms("dg_derivative3", 4 * nbytes(q) + nbytes(d),
+                       dg_derivative3_operations(q)))
+
+    grad = torch.randn((p_nodes, 3, 3), generator=gen).to(dev)
+    cs = torch.full((p_nodes,), chan.cs_sgs, device=dev)
+    delta = chan.delta_filter
+    print(f"time per call ({card}), smagorinsky_nut P={p_nodes} float32:")
+    ms, call_ms = time_calls({
+        "plain": lambda: smagorinsky.smagorinsky_nut_plain(grad, cs, delta),
+        "kernel": lambda: smagorinsky.smagorinsky_nut(grad, cs, delta)})
+    print("  library call: none, no single PyTorch call computes nu_t")
+    nu_t = smagorinsky.smagorinsky_nut(grad, cs, delta)
+    record["smagorinsky_nut"] = dict(
+        ms=ms, call_ms=call_ms, library_ms=None,
+        bound=bound_ms("smagorinsky_nut", nbytes(grad, cs, nu_t),
+                       smagorinsky_operations(p_nodes)))
+
+    rho_m, ux_m, uz_m = channel._matching_state(chan_bank, chan, chan_ops, 0)
+    u_par = torch.sqrt(ux_m**2 + uz_m**2 + 1e-12).contiguous()
+    rho_m = rho_m.contiguous()
+    wkw = dict(y_m=0.5 * chan.dxs[1], nu=chan.nu, kappa=chan.kappa,
+               iters=chan.wm_iters)
+    print(f"time per call ({card}), wall_model_tau P={u_par.numel()} "
+          f"iters={chan.wm_iters} float32:")
+    ms, call_ms = time_calls({
+        "plain": lambda: wall_model.wall_model_tau_plain(u_par, rho_m, **wkw),
+        "kernel": lambda: wall_model.wall_model_tau(u_par, rho_m, **wkw)})
+    print("  library call: none, no single PyTorch call inverts the wall law")
+    record["wall_model_tau"] = dict(
+        ms=ms, call_ms=call_ms, library_ms=None,
+        bound=bound_ms("wall_model_tau", 3 * nbytes(u_par),
+                       wall_model_operations(u_par.numel(), chan.wm_iters)))
+    for name, rec in record.items():
+        b, by = rec["bound"]
+        print(f"{name} ({card}): device time {rec['ms']['kernel']:.7f} ms "
+              f"against a bound of {b:.7f} ms by {by}: "
+              f"{100 * b / rec['ms']['kernel']:.3f}% of the bound's speed")
+
+    # --- 5. both paths, each with every count set to 0 just before it ---------
+    counters = [rhs.fused_navier_stokes_rhs, dg_derivative.dg_derivative3,
+                smagorinsky.smagorinsky_nut, wall_model.wall_model_tau]
+    names = [fn.__name__ for fn in counters]
+    launches = {}
     n_iter = 2
+    cfg = env.cfg
     expected = (n_iter + 1) * cfg.n_actions * cfg.n_substeps * 5
     if expected != 9750:  # 3 episodes x 50 steps x 13 substeps x 5 stages
-        raise AssertionError(f"episode arithmetic gives {expected}")
-    with tempfile.TemporaryDirectory() as ckpt:
-        rhs.fused_navier_stokes_rhs.launches = 0
-        t0 = time.perf_counter()
-        history = rl_train.main([
-            "--env", "hit_les_24dof", "--n-envs", "16", "--iterations",
-            str(n_iter), "--eval-every", str(n_iter), "--checkpoint-dir",
-            ckpt])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = rhs.fused_navier_stokes_rhs.launches
-        step = checkpoints.latest_step(ckpt)
-    for rec in history:
-        print(f"iteration {rec['iteration']}: t_sample_s={rec['t_sample_s']:.3f}"
-              f" t_update_s={rec['t_update_s']:.3f} return_norm="
-              f"{rec['return_norm']:.6f}"
-              + (f" eval_return_norm={rec['eval_return_norm']:.6f}"
-                 if "eval_return_norm" in rec else ""))
-    print(f"main path: {wall:.2f} s wall, fused RHS kernel calls {launches} "
-          f"(expected {expected}), checkpoint step {step}")
-    if len(history) != n_iter:
-        raise AssertionError(f"{len(history)} iterations, wanted {n_iter}")
-    for rec in history:
-        for key in ("return_norm",) + (("eval_return_norm",)
-                                       if "eval_return_norm" in rec else ()):
-            if not (math.isfinite(rec[key]) and -1.0 <= rec[key] <= 1.0):
-                raise AssertionError(f"{key}={rec[key]} not in [-1, 1]")
-    if "eval_return_norm" not in history[-1]:
-        raise AssertionError("the evaluation episode did not run")
-    if launches != expected:
-        raise AssertionError(f"fused RHS kernel ran {launches} times on the "
-                             f"main path, expected {expected}")
-    if step != n_iter:
-        raise AssertionError(f"no checkpoint of step {n_iter} (got {step})")
+        raise AssertionError(f"HIT episode arithmetic gives {expected}")
+    _, counts, wall, step = train("hit_les_24dof", n_iter, counters)
+    print(f"main path hit_les_24dof: {wall:.2f} s wall, launches "
+          f"{dict(zip(names, counts))} (fused RHS expected {expected}), "
+          f"checkpoint step {step}")
+    if counts != [expected, 0, 0, 0]:
+        raise AssertionError(f"HIT path launches {counts}, expected "
+                             f"[{expected}, 0, 0, 0]")
+    launches["fused_navier_stokes_rhs"] = counts[0]
 
-    # --- 5b. where the main path's time goes (after the count was read) ------
+    chan_iter = 1
+    rhs_calls = (chan_iter + 1) * chan.n_actions * chan.n_substeps * 5
+    if rhs_calls != 2 * 20 * 26 * 5:
+        raise AssertionError(f"channel episode arithmetic gives {rhs_calls}")
+    chan_expected = [0, rhs_calls, rhs_calls, 2 * rhs_calls]  # two walls
+    _, counts, wall, step = train("channel_wm", chan_iter, counters)
+    print(f"main path channel_wm: {wall:.2f} s wall, launches "
+          f"{dict(zip(names, counts))} (expected "
+          f"{dict(zip(names, chan_expected))}), checkpoint step {step}")
+    if counts != chan_expected:
+        raise AssertionError(f"channel path launches {counts}, expected "
+                             f"{chan_expected}")
+    launches.update(zip(names[1:], counts[1:]))
+
+    # --- 5b. where the paths' time goes (after the counts were read) ---------
     runner = Runner(env, FleetConfig(n_envs=16, bank_size=17), device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     traj = runner.orch.sample_fleet(runner.policy, gen)
     state, _ = env.reset_from_bank(runner.orch.bank, torch.arange(16,
                                                                   device=dev))
     action = traj.actions[0]
-    profile_window("one RL step of 16 envs (env.step)",
+    profile_window("one hit_les_24dof RL step of 16 envs (env.step)",
                    lambda: env.step(state, action), card)
     adv, ret = ppo.gae(traj, runner.ppo_cfg.gamma, runner.ppo_cfg.lam)
     profile_window("one PPO epoch on 16 x 50 samples (update_epoch)",
                    lambda: ppo.update_epoch(runner.policy, runner.opt,
                                             runner.ppo_cfg, traj, adv, ret),
                    card)
+    t0 = time.perf_counter()
+    chan_env.step(chan_state, chan_action)
+    torch.cuda.synchronize()
+    print(f"one channel_wm RL step of 16 envs, unprofiled: "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms wall")
+    profile_window("one channel_wm RL step of 16 envs (env.step)",
+                   lambda: chan_env.step(chan_state, chan_action), card)
 
     # --- 6. records ----------------------------------------------------------
+    sources = {"fused_navier_stokes_rhs": ("ns_rhs.cu", "rhs.py:52"),
+               "dg_derivative3": ("dg_derivative.cu", "dg_derivative.py:60"),
+               "smagorinsky_nut": ("smagorinsky.cu", "smagorinsky.py:46"),
+               "wall_model_tau": ("wall_model.cu", "wall_model.py:46")}
     print(json.dumps({"kernels": [{
-        "name": "fused_navier_stokes_rhs",
+        "name": name,
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ns_rhs.cu",
-        "replaces": "src/repro/kernels/rhs.py:52",
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": ms["kernel"],
-        "plain_ms": ms["plain"],
-        "call_ms": call_ms["kernel"],
-        "plain_call_ms": call_ms["plain"],
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}))
+        "source": f"src/repro_torch/kernels/csrc/{sources[name][0]}",
+        "replaces": f"src/repro/kernels/{sources[name][1]}",
+        "launches": launches[name],
+        "max_abs_err": errs[name],
+        "ms": rec["ms"]["kernel"],
+        "plain_ms": rec["ms"]["plain"],
+        "call_ms": rec["call_ms"]["kernel"],
+        "plain_call_ms": rec["call_ms"]["plain"],
+        "bound_ms": rec["bound"][0],
+        "bound_by": rec["bound"][1],
+        "library_ms": rec["library_ms"],
+    } for name, rec in record.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

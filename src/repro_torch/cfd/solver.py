@@ -12,8 +12,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels import dg_derivative, smagorinsky
 from ..kernels import rhs as rhs_kernel
-from . import equations
+from . import dgsem, equations
 from .dgsem import DGParams
 from .equations import GasParams
 
@@ -131,6 +132,29 @@ class HITConfig:
             "inv_w_end": (float(1.0 / w[0]), float(1.0 / w[-1])),
             "w": torch.as_tensor(w, dtype=torch.float32, device=device),
         }
+
+
+def kernel_grad_nut(q_prim: torch.Tensor, cs_nodes: torch.Tensor,
+                    d_matrix: torch.Tensor, inv_w_end: tuple[float, float],
+                    delta: float, *, dg: DGParams | None = None, jac=None,
+                    bc: tuple | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """BR1 gradient of q_prim (..., 4, 3) and Smagorinsky nu_t through the
+    component kernels: `dg_derivative3` gives the volume derivatives that
+    `dgsem.dg_gradient` lifts (with `dg` / `jac` / `bc` as it takes them),
+    then `smagorinsky_nut` the eddy viscosity.  Each kernel's wrapper takes
+    its plain version for CPU tensors."""
+    n, c = q_prim.shape[-2], q_prim.shape[-1]
+    vols = dg_derivative.dg_derivative3(
+        q_prim.reshape((-1, n, n, n, c)).contiguous(), d_matrix)
+    vol_derivs = tuple(v.reshape(q_prim.shape) for v in vols)
+    grad_prim = dgsem.dg_gradient(q_prim, dg, d_matrix, inv_w_end,
+                                  vol_derivs=vol_derivs, jac=jac, bc=bc)
+    # the velocity rows are a strided view of the (..., 4, 3) gradient
+    nu_t = smagorinsky.smagorinsky_nut(
+        grad_prim[..., 0:3, :].reshape((-1, 3, 3)).contiguous(),
+        cs_nodes.reshape(-1).contiguous(), delta).reshape(cs_nodes.shape)
+    return grad_prim, nu_t
 
 
 def broadcast_cs(cs_elem: torch.Tensor, cfg: HITConfig) -> torch.Tensor:

@@ -9,6 +9,7 @@ unchanged one is loaded as it is.  Nothing here runs at import.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -68,3 +69,23 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(source)))
             _loaded[source] = lib
         return lib
+
+
+@functools.cache
+def launcher(source: str, name: str, argtypes: tuple):
+    """`<name>_launch` of `csrc/<source>` with its C signature `argtypes`,
+    wrapped so that a nonzero cudaError_t it returns raises RuntimeError
+    with `<name>_error_string`'s message."""
+    lib = load(source)
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+
+    def launch(*args) -> None:
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed: "
+                               f"{err(rc).decode()} ({rc})")
+
+    return launch

@@ -17,7 +17,6 @@ mixed-precision rollout).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -41,10 +40,14 @@ def plain_gradients(q_prim: torch.Tensor, cs_nodes: torch.Tensor,
 
 def plain_divergence(u: torch.Tensor, prim: tuple, grad_prim: torch.Tensor,
                      nu_t: torch.Tensor, d_matrix: torch.Tensor,
-                     inv_w_end: tuple[float, float], *, jac: float,
-                     gas: equations.GasParams) -> torch.Tensor:
+                     inv_w_end: tuple[float, float], *, jac,
+                     gas: equations.GasParams,
+                     wall: tuple | None = None) -> torch.Tensor:
     """-div(F_adv - F_visc) over the three directions: split-form volume,
-    LLF + BR1-central surfaces, periodic."""
+    LLF + BR1-central surfaces.  `jac` is a scalar or one per direction.
+    Periodic, unless `wall = (g_lo, g_hi)` gives the numerical fluxes of the
+    two y domain faces (the channel's walls)."""
+    jacs = jac if isinstance(jac, (tuple, list)) else (jac,) * 3
     rhs = None
     for d in range(3):
         vol_adv = dgsem.flux_differencing(
@@ -56,10 +59,16 @@ def plain_divergence(u: torch.Tensor, prim: tuple, grad_prim: torch.Tensor,
         vol_visc = dgsem.deriv_along(f_visc, d_matrix, d)
         fv_left, fv_right = dgsem.neighbor_traces(f_visc, d)
         f_star = f_star_adv - 0.5 * (fv_left + fv_right)
+        lo_value = None
+        if wall is not None and d == 1:
+            # non-periodic y: the wrapped faces are the wall fluxes
+            f_star = dgsem.set_face(f_star, d, -1, wall[1])
+            lo_value = wall[0]
         lo, hi = dgsem._face_slices(f_adv_nodes - f_visc, d)
-        div_d = dgsem.surface_lift(vol_adv - vol_visc, f_star - hi,
-                                   dgsem.left_faces(f_star, d) - lo, d,
-                                   inv_w_end) * jac
+        div_d = dgsem.surface_lift(
+            vol_adv - vol_visc, f_star - hi,
+            dgsem.left_faces(f_star, d, lo_value=lo_value) - lo, d,
+            inv_w_end) * jacs[d]
         rhs = -div_d if rhs is None else rhs - div_d
     return rhs
 
@@ -120,17 +129,8 @@ def navier_stokes_rhs_plain(u: torch.Tensor, cs_nodes: torch.Tensor,
     return rhs.to(u.dtype)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its C signatures."""
-    lib = _build.load(_SOURCE)
-    lib.ns_rhs_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-        + [ctypes.c_float] * 9 + [ctypes.c_void_p])
-    lib.ns_rhs_launch.restype = ctypes.c_int
-    lib.ns_rhs_error_string.argtypes = [ctypes.c_int]
-    lib.ns_rhs_error_string.restype = ctypes.c_char_p
-    return lib
+_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6
+             + (ctypes.c_float,) * 9 + (ctypes.c_void_p,))
 
 
 def _check_inputs(u, cs_nodes, d_matrix, w) -> int:
@@ -188,18 +188,14 @@ def fused_navier_stokes_rhs(u: torch.Tensor, cs_nodes: torch.Tensor,
                           device=u.device)
     partials = torch.empty((n_blocks, 4), dtype=torch.float32,
                            device=u.device)
-    lib = _library()
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    rc = lib.ns_rhs_launch(
+    _build.launcher(_SOURCE, "ns_rhs", _ARGTYPES)(
         u.data_ptr(), cs_nodes.data_ptr(), d32.data_ptr(), w32.data_ptr(),
         scratch.data_ptr(), partials.data_ptr(), out.data_ptr(),
         batch, kx, ky, kz, n, int(u.dtype == torch.bfloat16),
         float(inv_w_end[0]), float(inv_w_end[1]), float(jac), float(delta),
         float(mu), float(prandtl), float(prandtl_turb), float(forcing_a0),
         float(k_tke), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused RHS kernel launch failed: "
-                           f"{lib.ns_rhs_error_string(rc).decode()} ({rc})")
     fused_navier_stokes_rhs.launches += 1
     return out
 

@@ -7,30 +7,38 @@ In order, and any failure exits non-zero:
   1. prints the card's name and power limit, the torch and CUDA versions, and
      the TF32 flags (both set False for the whole run, so that float32
      convolutions and matmuls are full float32);
-  2. builds every CUDA kernel of both paths from the sources in the checkout
-     (one nvcc per source, all started together) and prints each build's
-     time and nvcc's register report;
+  2. builds every CUDA kernel of the three paths from the sources in the
+     checkout (one nvcc per source, all six started together) and prints
+     each build's time and nvcc's register report;
   3. holds each kernel to its plain PyTorch version on the card, in float32
      and bfloat16: the fused RHS on synthetic and real HIT states; the three
-     channel kernels at the channel path's shapes and beyond; then one RL
-     interval of each scenario on the kernel path against the staged plain
-     path;
-  4. times each kernel at its path's shape (16 envs): its device time
-     (torch.profiler over back-to-back calls, in turns plain, kernel, kernel,
-     plain), which the kernels' record reports as `ms`; one call alone with
-     the wrapper's host work (CUDA events), `call_ms`; the same two for the
-     plain version and, where one PyTorch call computes the same function,
-     for that call; and the bound, from the bytes and operations the call
-     needs;
-  5. drives both paths through `repro_torch.launch.rl_train`, each with every
+     channel kernels at the channel path's shapes and beyond; flash
+     attention and the linear scan at hymba-1.5b's shapes and at the other
+     corners of their contracts; then one RL interval of each CFD scenario
+     on the kernel path against the staged plain path, and hymba-1.5b at
+     full width in float32 (prefill of 2 x 1,100 tokens and 4 teacher-forced
+     decode steps) on the kernel path against the plain path;
+  4. times each kernel at its path's shape (16 envs; hymba's prefill of
+     4 x 2,048 tokens): its device time (torch.profiler over back-to-back
+     calls, in turns plain, kernel, kernel, plain), which the kernels'
+     record reports as `ms`; one call alone with the wrapper's host work
+     (CUDA events), `call_ms`; the same two for the plain version and,
+     where one PyTorch call computes the same function, for that call; and
+     the bound, from the bytes and operations the call needs;
+  5. drives the three paths through their entry points, each with every
      launch count set to 0 just before it and read just after:
-     `hit_les_24dof` (2 PPO iterations + 1 evaluation, 16 envs) must launch
-     the fused RHS exactly 3 episodes x 50 steps x 13 substeps x 5 stages
-     times, and `channel_wm` (1 iteration + 1 evaluation, 16 envs) must
-     launch dg_derivative3 and smagorinsky_nut exactly 2 x 20 x 26 x 5
-     times and wall_model_tau twice that (one call per wall); then profiles
-     one RL step of each and one HIT PPO epoch (torch.profiler) to show
-     where the time goes;
+     `hit_les_24dof` through `repro_torch.launch.rl_train` (2 PPO iterations
+     + 1 evaluation, 16 envs) must launch the fused RHS exactly 3 episodes x
+     50 steps x 13 substeps x 5 stages times; `channel_wm` (1 iteration + 1
+     evaluation, 16 envs) must launch dg_derivative3 and smagorinsky_nut
+     exactly 2 x 20 x 26 x 5 times and wall_model_tau twice that (one call
+     per wall); hymba-1.5b serving (bf16 weights from a seed,
+     `lm.greedy_generate` of 32 new tokens for 4 prompts of 2,048 Zipf
+     tokens, then for 4 of 700) must launch flash_attention 32 times and
+     linear_scan 1,024 times per batch (32 layers x (1 prefill + 31 decode
+     steps)); then profiles one RL step of each CFD path, one HIT PPO epoch,
+     one hymba prefill and one decode step (torch.profiler) to show where
+     the time goes;
   6. prints one JSON line per the kernels' record, then the last line
      `{"ok": true, "device": {...}}`.
 
@@ -39,6 +47,7 @@ It needs a CUDA device and the repository's `src/` beside it.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import math
 import os
@@ -50,10 +59,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and float32
-# rate outside the tensor cores.
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, float32 rate
+# outside the tensor cores, dense bf16 rate of the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_TC_PER_S = 989e12
 
 # max |kernel - plain| / max |plain| allowed, by I/O dtype.
 #   float32: both compute the same formulas in float32, in another summation
@@ -67,6 +77,10 @@ TOL = {"float32": 1e-4, "bfloat16": 4e-2}
 # The two elementwise channel kernels compute one short formula per point in
 # float32 from the same inputs as their plain versions: float32 1e-5.
 TOL_ELEMENTWISE = {"float32": 1e-5, "bfloat16": 4e-2}
+# hymba-1.5b at full width in float32, kernel path against plain path: 32
+# layers of float32 math that differ only in the order of the attention and
+# scan sums (each within ~1e-6 of its plain version); 1e-4 of max |logit|.
+TOL_MODEL = 1e-4
 
 
 def ns_rhs_operations(batch: int, kx: int, ky: int, kz: int, n: int) -> int:
@@ -103,13 +117,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound_ms(label: str, n_bytes: int, ops: int) -> tuple[float, str]:
+def bound_ms(label: str, n_bytes: int, ops: int,
+             peak: tuple[str, float] = ("fp32", PEAK_FP32_PER_S)
+             ) -> tuple[float, str]:
     """Least time for one call: `n_bytes` (each input read once, each output
-    written once) at the memory rate against `ops` at the float32 peak; the
-    larger term bounds."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    written once) at the memory rate against `ops` at `peak` (the float32
+    rate unless named); the larger term bounds."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / peak[1]
     print(f"bound {label}: {n_bytes} bytes -> {t_bytes * 1e3:.7f} ms; {ops} "
-          f"fp32 ops -> {t_ops * 1e3:.7f} ms")
+          f"{peak[0]} ops -> {t_ops * 1e3:.7f} ms")
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -139,6 +155,34 @@ def wall_model_operations(p: int, iters: int) -> int:
     (13, each transcendental counted as 1), the floor, the update (4); then
     rho u_tau^2 (2).  The rounds do not end early."""
     return p * (4 + iters * (2 + 13 + 1 + 4) + 2)
+
+
+def band_pairs(sq: int, skv: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs one attention head must compute: query i at
+    absolute position i + skv - sq sees keys <= it (causal) and > it -
+    window."""
+    total = 0
+    for i in range(sq):
+        pos = i + skv - sq
+        hi = min(skv - 1, pos) if causal else skv - 1
+        lo = max(0, pos - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_operations(heads: int, sq: int, skv: int, d: int, causal: bool,
+                     window: int | None) -> int:
+    """Per visible pair: q.k and p v, a multiply and an add per element each
+    (4 d), the scale, max, exp and sum (4); per query row the d divides.
+    Pairs outside the causal/window band need no work."""
+    return heads * (band_pairs(sq, skv, causal, window) * (4 * d + 4)
+                    + sq * d)
+
+
+def scan_operations(rows: int, t: int, dk: int, dv: int, gla: bool) -> int:
+    """Per step and state entry: k v, w S and their sum (3), then the read:
+    q S summed (2, GLA) or u k v, S + it, times q, summed (4, RWKV6)."""
+    return rows * t * dk * dv * (5 if gla else 7)
 
 
 def synthetic_state(gen, shape_prefix, cfg, device):
@@ -185,7 +229,8 @@ def traced(fn) -> tuple[float, list[tuple[float, int, str]]]:
 
 # the device functions of the port's own kernels, as the trace names them
 OWN_KERNELS = ("grad_pass", "div_pass", "dg_derivative3_kernel",
-               "smagorinsky_kernel", "wall_model_kernel")
+               "smagorinsky_kernel", "wall_model_kernel",
+               "flash_attention_kernel", "linear_scan_kernel")
 
 
 def profile_window(label: str, fn, card: str) -> None:
@@ -215,14 +260,18 @@ def profile_window(label: str, fn, card: str) -> None:
 def device_ms(fn, calls: int) -> float:
     """Device time of one call of `fn`: the device time of every kernel in
     a profiler trace of `calls` back-to-back calls, summed, over `calls`.
-    Where the trace shows no device time, CUDA events around the same loop
-    (which then also count any gaps the host leaves)."""
+    A trace that shows no device time (the profiler sometimes drops a
+    window's events) is taken again, up to three times in all; then CUDA
+    events around the same loop (which also count any gaps the host
+    leaves)."""
     import torch
 
-    _, rows = traced(lambda: [fn() for _ in range(calls)])
-    if rows:
-        return sum(r[0] for r in rows) / 1e3 / calls
-    print("device time: the trace shows none; CUDA events around the loop")
+    for _ in range(3):
+        _, rows = traced(lambda: [fn() for _ in range(calls)])
+        if rows:
+            return sum(r[0] for r in rows) / 1e3 / calls
+        print("device time: the trace shows none")
+    print("device time: CUDA events around the loop")
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(calls):
@@ -350,6 +399,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, src)
+    from repro_torch import configs as lm_configs
     from repro_torch import envs
     from repro_torch.cfd import channel, equations, gll, initial
     from repro_torch.cfd.solver import HITConfig
@@ -357,8 +407,11 @@ def main() -> int:
     from repro_torch.core import ppo
     from repro_torch.core.orchestrator import FleetConfig
     from repro_torch.core.runner import Runner
-    from repro_torch.kernels import (_build, dg_derivative, rhs, smagorinsky,
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import (_build, dg_derivative, flash_attention,
+                                     linear_scan, rhs, smagorinsky,
                                      wall_model)
+    from repro_torch.models import api, lm
 
     dev = torch.device("cuda", 0)
     # --- 1. the card and the numerics flags ---------------------------------
@@ -376,7 +429,8 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}")
 
     # --- 2. build: one nvcc per source, all started together -----------------
-    modules = (rhs, dg_derivative, smagorinsky, wall_model)
+    modules = (rhs, dg_derivative, smagorinsky, wall_model, flash_attention,
+               linear_scan)
 
     def build(source: str) -> float:
         t0 = time.perf_counter()
@@ -470,6 +524,56 @@ def main() -> int:
             if cfg_name == "channel_wm" and dtype == torch.float32:
                 errs["wall_model_tau"] = err
 
+    # flash attention: hymba's prefill (window 1024 on 28 layers, full on 4)
+    # and the contract's other corners
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[-1]
+        for label, (b, hq, hkv, sq, skv, d), kw in (
+                ("hymba SWA", (2, 25, 5, 2048, 2048, 64), dict(window=1024)),
+                ("hymba global", (2, 25, 5, 2048, 2048, 64), {}),
+                ("D=128 GQA 2 softcap 50", (2, 8, 4, 512, 512, 128),
+                 dict(softcap=50.0)),
+                ("D=80", (2, 8, 8, 512, 512, 80), {}),
+                ("non-causal", (2, 8, 2, 512, 512, 64), dict(causal=False)),
+                ("Sq=17 < Skv=300", (2, 8, 2, 17, 300, 64), {}),
+                ("ragged S=1000", (2, 8, 2, 1000, 1000, 64),
+                 dict(window=300))):
+            q = torch.randn((b, hq, sq, d), generator=gen).to(dev, dtype)
+            k = torch.randn((b, hkv, skv, d), generator=gen).to(dev, dtype)
+            v = torch.randn((b, hkv, skv, d), generator=gen).to(dev, dtype)
+            got = flash_attention.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = parity(f"flash_attention {label} {tuple(q.shape)} kv "
+                         f"{tuple(k.shape)} {kw} {tname}", got,
+                         flash_attention.mha_chunked(q, k, v, **kw),
+                         TOL[tname])
+            if label == "hymba SWA" and dtype == torch.float32:
+                errs["flash_attention"] = err
+        # linear scan: hymba's GLA read at prefill and decode, RWKV6's read
+        for label, (b, t, dk, dv), gla, with_u, with_s0 in (
+                ("hymba GLA", (50, 2048, 16, 64), True, False, False),
+                ("hymba decode T=1 with s0", (50, 1, 16, 64), True, False,
+                 True),
+                ("RWKV6 read with u", (64, 512, 64, 64), False, True, True),
+                ("ragged T=1000", (50, 1000, 16, 64), True, False, True)):
+            q = torch.randn((b, t, dk), generator=gen).to(dev, dtype)
+            k = (0.25 * torch.randn((b, t, dk), generator=gen)).to(dev)
+            v = torch.randn((b, t, dv), generator=gen).to(dev, dtype)
+            w = torch.exp(-0.5 * torch.rand((b, t, dk), generator=gen)).to(dev)
+            u = torch.randn((dk,), generator=gen).to(dev) if with_u else None
+            s0 = (torch.randn((b, dk, dv), generator=gen).to(dev)
+                  if with_s0 else None)
+            o, s_fin = linear_scan.linear_scan(q, k, v, w, u, s0,
+                                               decay_before_read=gla)
+            torch.cuda.synchronize()
+            o_p, s_p = linear_scan.linear_scan_chunked(
+                q, k, v, w, u, s0, decay_before_read=gla)
+            name = f"linear_scan {label} ({b}, {t}, {dk}, {dv}) {tname}"
+            err = max(parity(f"{name} o", o, o_p.to(dtype), TOL[tname]),
+                      parity(f"{name} S_final", s_fin, s_p, TOL["float32"]))
+            if label == "hymba GLA" and dtype == torch.float32:
+                errs["linear_scan"] = err
+
     # one RL interval of each scenario: the kernel path vs the staged plain
     # assembly, both on the card
     env = envs.make("hit_les_24dof")
@@ -493,6 +597,31 @@ def main() -> int:
     parity(f"one channel_wm RL interval of 16 envs ({chan.n_substeps * 5} "
            f"RHS calls), kernel path vs staged plain path", u_ker, u_ref,
            TOL["float32"])
+
+    # hymba-1.5b at full width in float32: prefill of 2 x 1,100 tokens (the
+    # window of 1,024 wraps) and 4 teacher-forced decode steps, the kernel
+    # path against the plain path
+    lm_cfg = lm_configs.get("hymba-1.5b")
+    cfg32 = dataclasses.replace(lm_cfg, dtype="float32",
+                                param_dtype="float32")
+    params32 = api.init(cfg32, seed=1)
+    toks = lm_batch(1, 2, 1104, lm_cfg.vocab)["tokens"].to(dev)
+
+    def teacher_forced(cfg):
+        logits, caches = api.prefill(params32, cfg, {"tokens": toks[:, :1100]},
+                                     cache_len=1104, cache_dtype=torch.float32)
+        out = [logits]
+        for t in range(1100, 1104):
+            logits, caches = api.decode_step(params32, cfg, toks[:, t], caches)
+            out.append(logits)
+        return torch.stack(out, 1)
+
+    parity("hymba-1.5b full width float32, prefill 2 x 1100 + 4 decode "
+           "steps, logits: kernel path vs plain path", teacher_forced(cfg32),
+           teacher_forced(dataclasses.replace(cfg32, attn_impl="chunked",
+                                              scan_impl="chunked")),
+           TOL_MODEL)
+    del params32
 
     # --- 4. time each kernel at its path's shape (16 envs, float32) ----------
     record = {}
@@ -564,15 +693,77 @@ def main() -> int:
         ms=ms, call_ms=call_ms, library_ms=None,
         bound=bound_ms("wall_model_tau", 3 * nbytes(u_par),
                        wall_model_operations(u_par.numel(), chan.wm_iters)))
+    # the LM kernels at hymba's prefill of 4 x 2,048 tokens, bf16 as served
+    b, hq, hkv, sq = 4, lm_cfg.n_heads, lm_cfg.kv_heads, 2048
+    d, win, bf16 = lm_cfg.hd, lm_cfg.window, torch.bfloat16
+    q = torch.randn((b, hq, sq, d), generator=gen).to(dev, bf16)
+    k = torch.randn((b, hkv, sq, d), generator=gen).to(dev, bf16)
+    v = torch.randn((b, hkv, sq, d), generator=gen).to(dev, bf16)
+    ones = torch.ones((sq, sq), dtype=torch.bool, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, window, mask in (("window 1024 (28 layers)", win,
+                                 ones.tril() & ~ones.tril(-win)),
+                                ("global (4 layers)", None, ones.tril())):
+        print(f"time per call ({card}), flash_attention {label} q "
+              f"{tuple(q.shape)} kv {tuple(k.shape)} bf16:")
+        ms, call_ms = time_calls({
+            "plain": lambda: flash_attention.mha_chunked(q, k, v,
+                                                         window=window),
+            "kernel": lambda: flash_attention.flash_attention(q, k, v,
+                                                              window=window),
+            "library": lambda: sdpa(q, k, v, attn_mask=mask,
+                                    enable_gqa=True)})
+        parity("library call scaled_dot_product_attention(band mask, "
+               "enable_gqa) vs plain", sdpa(q, k, v, attn_mask=mask,
+                                            enable_gqa=True),
+               flash_attention.mha_chunked(q, k, v, window=window),
+               TOL["bfloat16"])
+        bound = bound_ms(f"flash_attention {label}", 2 * nbytes(q, k),
+                         flash_operations(b * hq, sq, sq, d, True, window),
+                         ("bf16 tensor-core", PEAK_BF16_TC_PER_S))
+        if window:
+            record["flash_attention"] = dict(
+                ms=ms, call_ms=call_ms, library_ms=ms["library"],
+                bound=bound)
+
+    n, rows = lm_cfg.ssm_state, b * hq
+    qs = torch.randn((rows, sq, n), generator=gen).to(dev, bf16)
+    ks = (0.25 * torch.randn((rows, sq, n), generator=gen)).to(dev)
+    vs = torch.randn((rows, sq, d), generator=gen).to(dev, bf16)
+    ws = torch.exp(-0.1 * torch.rand((rows, sq, n), generator=gen)).to(dev)
+    s0 = torch.zeros((rows, n, d), device=dev)
+    for label, t_len in (("prefill", sq), ("one decode step", 1)):
+        qt, kt, vt, wt = (x[:, :t_len].contiguous() for x in (qs, ks, vs, ws))
+        st = s0 if t_len == 1 else None
+        print(f"time per call ({card}), linear_scan {label} q/k/w "
+              f"{tuple(qt.shape)} v {tuple(vt.shape)} (q, v bf16; k, w "
+              f"f32{'; s0 f32' if st is not None else ''}):")
+        ms, call_ms = time_calls({
+            "plain": lambda: linear_scan.linear_scan_chunked(
+                qt, kt, vt, wt, None, st, decay_before_read=True,
+                chunk=lm_cfg.scan_chunk),
+            "kernel": lambda: linear_scan.linear_scan(
+                qt, kt, vt, wt, None, st, decay_before_read=True)})
+        out_bytes = vt.numel() * 2 + s0.numel() * 4  # o bf16, S_final f32
+        bound = bound_ms(f"linear_scan {label}",
+                         nbytes(qt, kt, vt, wt) + out_bytes
+                         + (nbytes(st) if st is not None else 0),
+                         scan_operations(rows, t_len, n, d, True))
+        if t_len == sq:
+            print("  library call: none, no single PyTorch call computes "
+                  "the gated linear recurrence")
+            record["linear_scan"] = dict(ms=ms, call_ms=call_ms,
+                                         library_ms=None, bound=bound)
     for name, rec in record.items():
         b, by = rec["bound"]
         print(f"{name} ({card}): device time {rec['ms']['kernel']:.7f} ms "
               f"against a bound of {b:.7f} ms by {by}: "
               f"{100 * b / rec['ms']['kernel']:.3f}% of the bound's speed")
 
-    # --- 5. both paths, each with every count set to 0 just before it ---------
+    # --- 5. the three paths, each with every count set to 0 just before it --
     counters = [rhs.fused_navier_stokes_rhs, dg_derivative.dg_derivative3,
-                smagorinsky.smagorinsky_nut, wall_model.wall_model_tau]
+                smagorinsky.smagorinsky_nut, wall_model.wall_model_tau,
+                flash_attention.flash_attention, linear_scan.linear_scan]
     names = [fn.__name__ for fn in counters]
     launches = {}
     n_iter = 2
@@ -584,16 +775,16 @@ def main() -> int:
     print(f"main path hit_les_24dof: {wall:.2f} s wall, launches "
           f"{dict(zip(names, counts))} (fused RHS expected {expected}), "
           f"checkpoint step {step}")
-    if counts != [expected, 0, 0, 0]:
+    if counts != [expected, 0, 0, 0, 0, 0]:
         raise AssertionError(f"HIT path launches {counts}, expected "
-                             f"[{expected}, 0, 0, 0]")
+                             f"[{expected}, 0, 0, 0, 0, 0]")
     launches["fused_navier_stokes_rhs"] = counts[0]
 
     chan_iter = 1
     rhs_calls = (chan_iter + 1) * chan.n_actions * chan.n_substeps * 5
     if rhs_calls != 2 * 20 * 26 * 5:
         raise AssertionError(f"channel episode arithmetic gives {rhs_calls}")
-    chan_expected = [0, rhs_calls, rhs_calls, 2 * rhs_calls]  # two walls
+    chan_expected = [0, rhs_calls, rhs_calls, 2 * rhs_calls, 0, 0]
     _, counts, wall, step = train("channel_wm", chan_iter, counters)
     print(f"main path channel_wm: {wall:.2f} s wall, launches "
           f"{dict(zip(names, counts))} (expected "
@@ -601,7 +792,79 @@ def main() -> int:
     if counts != chan_expected:
         raise AssertionError(f"channel path launches {counts}, expected "
                              f"{chan_expected}")
-    launches.update(zip(names[1:], counts[1:]))
+    launches.update(zip(names[1:4], counts[1:4]))
+
+    # hymba-1.5b serving: bf16 weights from a seed (cast once, as served),
+    # two request batches through lm.greedy_generate, 32 new tokens each
+    serve_cfg = dataclasses.replace(lm_cfg, param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = api.init(serve_cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"hymba-1.5b: {sum(p.numel() for p in params.parameters())} "
+          f"parameters, bf16, built on the card in "
+          f"{time.perf_counter() - t0:.3f} s")
+    n_new = 32
+    per_batch = [0, 0, 0, 0, lm_cfg.n_layers, lm_cfg.n_layers * n_new]
+    if per_batch[4:] != [32, 1024]:  # 32 layers x (1 prefill + 31 decodes)
+        raise AssertionError(f"hymba serving arithmetic gives {per_batch}")
+    lm_launches = [0] * len(counters)
+    for seed, n_prompts, s_len in ((3, 4, 2048), (4, 4, 700)):
+        prompt = lm_batch(seed, n_prompts, s_len, lm_cfg.vocab)["tokens"].to(
+            dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = lm.greedy_generate(params, serve_cfg, prompt, n_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [fn.launches for fn in counters]
+        peak = torch.cuda.max_memory_allocated()
+        label = f"hymba-1.5b greedy_generate {n_prompts} x {s_len} tokens"
+        print(f"main path {label} + {n_new} new: {wall:.3f} s wall, "
+              f"{n_prompts * n_new / wall:.2f} generated tokens/s, peak "
+              f"memory {peak / 2**30:.3f} GiB, launches "
+              f"{dict(zip(names, counts))} (expected "
+              f"{dict(zip(names, per_batch))})")
+        if counts != per_batch:
+            raise AssertionError(f"{label}: launches {counts}, expected "
+                                 f"{per_batch}")
+        if out.shape != (n_prompts, n_new) or out.dtype != torch.int64 \
+                or not bool(((out >= 0) & (out < lm_cfg.vocab)).all()):
+            raise AssertionError(f"{label}: tokens {out.dtype} "
+                                 f"{tuple(out.shape)} out of range")
+        lm_launches = [a + c for a, c in zip(lm_launches, counts)]
+        # the same requests through api.prefill / api.decode_step, timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = api.prefill(params, serve_cfg, {"tokens": prompt},
+                                     cache_len=s_len + n_new)
+        toks = [torch.argmax(logits, dim=-1)]
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        finite = [torch.isfinite(logits).all()]
+        t0 = time.perf_counter()
+        for _ in range(n_new - 1):
+            logits, caches = api.decode_step(params, serve_cfg, toks[-1],
+                                             caches)
+            toks.append(torch.argmax(logits, dim=-1))
+            finite.append(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        if not bool(torch.stack(finite).all()):
+            raise AssertionError(f"{label}: non-finite logits")
+        same = int((torch.stack(toks, 1) == out).sum())
+        print(f"  {label} by phase ({card}): prefill {t_prefill * 1e3:.3f} "
+              f"ms, decode {t_decode * 1e3 / (n_new - 1):.3f} ms per token "
+              f"step of {n_prompts} sequences; tokens equal to "
+              f"greedy_generate's: {same} of {out.numel()}")
+    print(f"main path hymba-1.5b serving, both batches: launches "
+          f"{dict(zip(names, lm_launches))}")
+    if lm_launches != [2 * c for c in per_batch]:
+        raise AssertionError(f"serving launches {lm_launches}, expected "
+                             f"{[2 * c for c in per_batch]}")
+    launches.update(zip(names[4:], lm_launches[4:]))
 
     # --- 5b. where the paths' time goes (after the counts were read) ---------
     runner = Runner(env, FleetConfig(n_envs=16, bank_size=17), device=dev)
@@ -624,12 +887,26 @@ def main() -> int:
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms wall")
     profile_window("one channel_wm RL step of 16 envs (env.step)",
                    lambda: chan_env.step(chan_state, chan_action), card)
+    prompt = lm_batch(3, 4, 2048, lm_cfg.vocab)["tokens"].to(dev)
+    profile_window("one hymba-1.5b prefill of 4 x 2048 tokens (api.prefill)",
+                   lambda: api.prefill(params, serve_cfg, {"tokens": prompt},
+                                       cache_len=2048 + n_new), card)
+    logits, caches = api.prefill(params, serve_cfg, {"tokens": prompt},
+                                 cache_len=2048 + n_new)
+    tok = torch.argmax(logits, dim=-1)
+    profile_window("one hymba-1.5b decode step of 4 sequences "
+                   "(api.decode_step)",
+                   lambda: api.decode_step(params, serve_cfg, tok, caches),
+                   card)
 
     # --- 6. records ----------------------------------------------------------
     sources = {"fused_navier_stokes_rhs": ("ns_rhs.cu", "rhs.py:52"),
                "dg_derivative3": ("dg_derivative.cu", "dg_derivative.py:60"),
                "smagorinsky_nut": ("smagorinsky.cu", "smagorinsky.py:46"),
-               "wall_model_tau": ("wall_model.cu", "wall_model.py:46")}
+               "wall_model_tau": ("wall_model.cu", "wall_model.py:46"),
+               "flash_attention": ("flash_attention.cu",
+                                   "flash_attention.py:99"),
+               "linear_scan": ("linear_scan.cu", "linear_scan.py:105")}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

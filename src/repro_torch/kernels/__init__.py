@@ -8,6 +8,12 @@
                  `repro/kernels/smagorinsky.py:smagorinsky_nut`
   wall_model     Reichardt wall-stress inversion (csrc/wall_model.cu),
                  replacing `repro/kernels/wall_model.py:wall_model_tau`
+  flash_attention  online-softmax GQA attention forward
+                 (csrc/flash_attention.cu), replacing
+                 `repro/kernels/flash_attention.py:flash_attention`
+  linear_scan    gated linear recurrence forward (csrc/linear_scan.cu),
+                 replacing `repro/kernels/linear_scan.py:linear_scan`
+  ops            the LM kernels' impl dispatch (kernel | chunked | naive/scan)
   _build         nvcc build at first use, ctypes loading
 
 Kernels are built and loaded when first launched, never at import.

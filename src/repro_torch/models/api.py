@@ -1,0 +1,48 @@
+"""The serving entry points (port of the decoder-only parts of
+`repro.models.api`).
+
+`init` and `init_caches` take `device=None`, which means the GPU, and raise
+without one unless the caller asks for the CPU (`device="cpu"`).  `prefill`
+and `decode_step` run where the parameters are.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import resolve_device
+from . import lm
+from .config import ArchConfig
+
+
+def init(cfg: ArchConfig, seed: int = 0, device=None) -> torch.nn.Module:
+    """Parameters drawn from a `torch.Generator` seeded with `seed` on the
+    device, then cast once to `cfg.param_dtype` (float32 training masters;
+    "bfloat16" is the serving artifact, as the reference's
+    `api.abstract_params` treats it)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.device(dev):
+        params = lm.init(gen, cfg)
+    return params.to(getattr(torch, cfg.param_dtype))
+
+
+def prefill(params, cfg: ArchConfig, batch: dict,
+            cache_len: int | None = None, cache_dtype=torch.bfloat16):
+    """batch: {"tokens": (B, S)} -> (last-token logits (B, V), caches)."""
+    return lm.prefill(params, cfg, batch["tokens"], cache_len=cache_len,
+                      cache_dtype=cache_dtype)
+
+
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches: dict):
+    """One new token (B,) against the caches -> (logits (B, V), caches)."""
+    return lm.decode_step(params, cfg, token, caches)
+
+
+def serve_step(params, cfg: ArchConfig, token: torch.Tensor, caches: dict):
+    """Alias of `decode_step`, the reference's name for one served token."""
+    return decode_step(params, cfg, token, caches)
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, device=None) -> dict:
+    return lm.init_caches(cfg, batch, max_len, dtype, resolve_device(device))

@@ -1,0 +1,158 @@
+"""Transformer block assembly: norms + mixer + FFN (port of the parts of
+`repro.models.blocks` that the ported architectures use).
+
+A block is `(params, cfg, layer_kind)` plus a mode:
+
+    mode="train"    full sequence, no cache (teacher forcing)
+    mode="prefill"  full sequence, builds the cache
+    mode="decode"   one token against the cache
+
+Mixers: "attn" and the hybrid "attn+mamba" (hymba: attention and SSM heads
+read the same normed input, their outputs averaged).  FFNs: the dense
+swiglu / geglu / gelu_mlp.  The MoE FFN and the RWKV mixer are not ported
+yet and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .. import nn
+from . import attention, ssm
+from .config import ArchConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerKind:
+    window: int | None          # None -> full attention
+    ffn: str                    # swiglu | geglu | gelu_mlp | moe | rwkv_cmix
+    d_ff: int
+
+
+def layer_kind(cfg: ArchConfig, i: int) -> LayerKind:
+    window = None if cfg.layer_is_global(i) else cfg.window
+    if cfg.ffn == "moe" and i < cfg.first_dense_layers:
+        return LayerKind(window, "swiglu", cfg.d_ff_dense or cfg.d_ff)
+    return LayerKind(window, cfg.ffn, cfg.d_ff)
+
+
+def _check_ported(cfg: ArchConfig, kind: LayerKind) -> None:
+    if kind.ffn not in ("swiglu", "geglu", "gelu_mlp"):
+        raise NotImplementedError(f"FFN {kind.ffn!r} is not ported yet")
+    if cfg.mixer not in ("attn", "attn+mamba"):
+        raise NotImplementedError(f"mixer {cfg.mixer!r} is not ported yet")
+
+
+# --- dense FFNs -----------------------------------------------------------------
+def init_ffn(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind) -> dict:
+    d, f = cfg.d_model, kind.d_ff
+    w_in = nn.normal_init(1.0 / math.sqrt(d))
+    p = {"wi": nn.dense_init(gen, d, f, bias=cfg.mlp_bias, w_init=w_in),
+         "wo": nn.dense_init(gen, f, d, bias=cfg.mlp_bias,
+                             w_init=nn.normal_init(1.0 / math.sqrt(f)))}
+    if kind.ffn in ("swiglu", "geglu"):
+        p["wg"] = nn.dense_init(gen, d, f, bias=cfg.mlp_bias, w_init=w_in)
+    return p
+
+
+def apply_ffn(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor
+              ) -> torch.Tensor:
+    h = nn.dense(p["wi"], x, dtype=x.dtype)
+    if kind.ffn == "swiglu":
+        h = F.silu(nn.dense(p["wg"], x, dtype=x.dtype)) * h
+    elif kind.ffn == "geglu":
+        h = F.gelu(nn.dense(p["wg"], x, dtype=x.dtype), approximate="tanh") * h
+    else:  # gelu_mlp
+        h = F.gelu(h, approximate="tanh")
+    return nn.dense(p["wo"], h, dtype=x.dtype)
+
+
+# --- norms ------------------------------------------------------------------------
+def init_norm(cfg: ArchConfig) -> dict:
+    if cfg.norm == "layernorm":
+        return nn.layernorm_init(cfg.d_model)
+    if cfg.norm == "layernorm_nobias":  # command-r
+        return nn.layernorm_init(cfg.d_model, bias=False)
+    return nn.rmsnorm_init(cfg.d_model)
+
+
+def apply_norm(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm.startswith("layernorm"):
+        return nn.layernorm(p, x)
+    return nn.rmsnorm(p, x, scale_plus_one=cfg.norm_scale_plus_one)
+
+
+# --- block ---------------------------------------------------------------------
+def init_block(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind) -> dict:
+    _check_ported(cfg, kind)
+    p: dict = {"norm1": init_norm(cfg), "ffn": init_ffn(gen, cfg, kind)}
+    if cfg.mixer == "attn+mamba":
+        p["mixer"] = {"attn": attention.init(gen, cfg),
+                      "ssm": ssm.init(gen, cfg)}
+    else:
+        p["mixer"] = attention.init(gen, cfg)
+    if not cfg.parallel_block:
+        p["norm2"] = init_norm(cfg)
+    if cfg.post_norms:
+        p["post_norm1"] = init_norm(cfg)
+        p["post_norm2"] = init_norm(cfg)
+    return p
+
+
+def init_block_cache(cfg: ArchConfig, kind: LayerKind, batch: int,
+                     max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+    """Prefill/decode cache for one block (empty)."""
+    kv = attention.init_cache(cfg, batch, max_len, window=kind.window,
+                              dtype=dtype, device=device)
+    if cfg.mixer == "attn+mamba":
+        return {"mixer": {"attn": kv, "ssm": ssm.init_state(
+            cfg, batch, dtype, device)}}
+    return {"mixer": kv}
+
+
+def _mix(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor, mode: str,
+         cache: dict | None):
+    """Apply the mixer.  Returns (out, new_cache_or_None)."""
+    ca = cache["mixer"] if cache else None
+    if cfg.mixer == "attn+mamba":
+        if mode == "train":
+            a_out = attention.full_attention(p["attn"], cfg, x,
+                                             window=kind.window)
+            s_out, _ = ssm.apply_seq(p["ssm"], cfg, x, None)
+            return 0.5 * (a_out + s_out), None
+        if mode == "prefill":
+            a_out, a_cache = attention.prefill_attention(
+                p["attn"], cfg, x, ca["attn"], window=kind.window)
+            s_out, s_state = ssm.apply_seq(p["ssm"], cfg, x, None)
+        else:
+            a_out, a_cache = attention.decode_attention(
+                p["attn"], cfg, x, ca["attn"], window=kind.window)
+            s_out, s_state = ssm.apply_step(p["ssm"], cfg, x, ca["ssm"])
+        return 0.5 * (a_out + s_out), {"attn": a_cache, "ssm": s_state}
+
+    if mode == "train":
+        return attention.full_attention(p, cfg, x, window=kind.window), None
+    if mode == "prefill":
+        return attention.prefill_attention(p, cfg, x, ca, window=kind.window)
+    return attention.decode_attention(p, cfg, x, ca, window=kind.window)
+
+
+def apply_block(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor,
+                mode: str = "train", cache: dict | None = None):
+    """-> (x, new_cache_or_None)."""
+    h = apply_norm(p["norm1"], cfg, x)
+    m_out, m_cache = _mix(p["mixer"], cfg, kind, h, mode, cache)
+    if cfg.parallel_block:  # command-r: attn & ffn read the same norm
+        x = x + m_out + apply_ffn(p["ffn"], cfg, kind, h)
+    else:
+        if cfg.post_norms:
+            m_out = apply_norm(p["post_norm1"], cfg, m_out)
+        x = x + m_out
+        f_out = apply_ffn(p["ffn"], cfg, kind, apply_norm(p["norm2"], cfg, x))
+        if cfg.post_norms:
+            f_out = apply_norm(p["post_norm2"], cfg, f_out)
+        x = x + f_out
+    return x, None if m_cache is None else {"mixer": m_cache}

@@ -1,0 +1,305 @@
+"""PyTorch port vs JAX reference: the LM path's two kernels.
+
+The plain versions of the port (`mha_chunked` and `mha`,
+`linear_scan_chunked` and `linear_scan_sequential`, against which the CUDA
+kernels are held on the card) run against the JAX Pallas kernels in
+interpret mode and against the oracles `ref.mha` / `ref.linear_scan`, on the
+same numpy inputs.  The CUDA kernels have no CPU mode: their tests are
+marked `cuda` and skip without a GPU.
+
+Tolerances, relative to max |reference|:
+  float32   2e-6: both sides compute the same float32 formulas in another
+            order (the chunked scan's exp/log pair decays against the
+            oracle's products); measured errors are written beside each
+            test.
+  bfloat16  2e-2: the math is float32 on both sides from the same bf16
+            inputs, but a last-bit float32 difference can flip the final
+            rounding to bf16 (2^-8 = 3.9e-3 of the value) and the
+            reference's own rounding of the chunked intermediate differs.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.flash_attention import flash_attention as pallas_fa
+from repro.kernels.linear_scan import linear_scan as pallas_ls
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import linear_scan as ls
+from repro_torch.kernels import ops
+
+TOL = {"attention": {"float32": 2e-6, "bfloat16": 2e-2},
+       "scan": {"float32": 2e-6, "bfloat16": 2e-2}}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same values for both packages, rounded once to `dtype`."""
+    j = jnp.asarray(x).astype(JDT[dtype])
+    t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    return j, t
+
+
+def _rel(got: torch.Tensor, want) -> float:
+    """max |got - want| / max |want|; `want` a JAX array or a tensor."""
+    want = (want.float().cpu().numpy() if isinstance(want, torch.Tensor)
+            else np.asarray(jnp.asarray(want).astype(jnp.float32)))
+    return float(np.max(np.abs(got.float().cpu().numpy() - want))
+                 / np.max(np.abs(want)))
+
+
+# --- attention ----------------------------------------------------------------
+# (b, hq, hkv, sq, skv, d, causal, window, softcap): GQA groups 1/2/5, causal
+# on and off, window None/6, softcap None/30, Sq < Skv, ragged sizes, D 16/64
+FLASH_CASES = [
+    (2, 4, 4, 24, 24, 16, True, None, None),
+    (2, 4, 2, 40, 40, 64, True, 6, None),
+    (1, 5, 1, 37, 37, 16, True, 6, 30.0),
+    (2, 4, 2, 33, 33, 64, False, None, None),
+    (1, 10, 2, 29, 29, 16, False, 6, 30.0),
+    (2, 4, 2, 9, 50, 64, True, None, None),
+    (1, 5, 1, 7, 45, 16, True, 6, None),
+    (1, 2, 2, 1, 19, 64, True, 6, 30.0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_plain_matches_pallas_and_oracle(case, dtype):
+    """`mha_chunked` (the kernel's plain version, block_k=16 so several kv
+    blocks and a ragged last one) and `mha` against the Pallas kernel
+    (interpret mode, 16x16 blocks) and `ref.mha`.  Measured max over the
+    grid: float32 6.7e-7, bfloat16 1.2e-3 of max |reference|."""
+    b, hq, hkv, sq, skv, d, causal, window, softcap = case
+    rng = np.random.default_rng(sum(case[:6]))
+    q, tq = _pair(rng.standard_normal((b, hq, sq, d), np.float32), dtype)
+    k, tk = _pair(rng.standard_normal((b, hkv, skv, d), np.float32), dtype)
+    v, tv = _pair(rng.standard_normal((b, hkv, skv, d), np.float32), dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    kernel = pallas_fa(q, k, v, block_q=16, block_k=16, interpret=True, **kw)
+    oracle = ref.mha(q, k, v, **kw)
+    chunked = fa.mha_chunked(tq, tk, tv, block_k=16, **kw)
+    naive = fa.mha(tq, tk, tv, **kw)
+    tol = TOL["attention"][dtype]
+    for got in (chunked, naive):
+        assert got.shape == tq.shape and got.dtype == tq.dtype
+        assert _rel(got, kernel) <= tol
+        assert _rel(got, oracle) <= tol
+
+
+def test_flash_rows_without_keys_give_zero():
+    """Sq > Skv under a causal mask: the first rows see no key.  The kernel
+    contract (and `mha_chunked`) gives 0 there, as the Pallas kernel does;
+    the other rows match it."""
+    rng = np.random.default_rng(3)
+    q, tq = _pair(rng.standard_normal((1, 2, 12, 16), np.float32), "float32")
+    k, tk = _pair(rng.standard_normal((1, 2, 8, 16), np.float32), "float32")
+    got = fa.mha_chunked(tq, tk, tk, block_k=4)
+    want = pallas_fa(q, k, k, block_q=4, block_k=4, interpret=True)
+    assert torch.all(got[:, :, :4] == 0)
+    assert _rel(got, want) <= TOL["attention"]["float32"]
+
+
+def test_attention_dispatch_forms_agree():
+    """`ops.attention`'s three impls on the CPU: "kernel" (the wrapper's
+    plain version), "chunked" and "naive" agree; an unknown impl raises."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               for s in ((2, 4, 20, 16), (2, 2, 20, 16), (2, 2, 20, 16)))
+    outs = [ops.attention(q, k, v, window=6, impl=impl, block_k=8)
+            for impl in ("kernel", "chunked", "naive")]
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError):
+        ops.attention(q, k, v, impl="flash")
+
+
+# --- linear scan --------------------------------------------------------------
+# (b, t, dk, dv, decay_before_read, with_u, with_s0, chunk): both reads,
+# with and without u / s0, ragged T, T = 1
+SCAN_CASES = [
+    (3, 37, 16, 64, True, False, False, 8),
+    (3, 37, 16, 64, True, False, True, 8),
+    (2, 1, 16, 64, True, False, True, 8),
+    (2, 40, 8, 16, False, True, True, 16),
+    (2, 29, 8, 16, False, False, False, 8),
+    (2, 1, 8, 16, False, True, True, 8),
+]
+
+
+def _scan_inputs(case, dtype):
+    b, t, dk, dv, _, with_u, with_s0, _ = case
+    rng = np.random.default_rng(sum(case[:4]))
+    q = rng.standard_normal((b, t, dk), np.float32)
+    k = 0.3 * rng.standard_normal((b, t, dk), np.float32)
+    v = rng.standard_normal((b, t, dv), np.float32)
+    w = np.exp(-rng.uniform(0.0, 0.7, (b, t, dk))).astype(np.float32)
+    u = rng.standard_normal((dk,), np.float32) if with_u else None
+    s0 = rng.standard_normal((b, dk, dv), np.float32) if with_s0 else None
+    pairs = [_pair(x, dtype) for x in (q, k, v, w)]
+    if u is not None:
+        pairs.append(_pair(u, dtype))
+    else:
+        pairs.append((None, None))
+    # s0 is float32 in every caller (the SSM state)
+    pairs.append(_pair(s0, "float32") if s0 is not None else (None, None))
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_scan_plain_matches_pallas_and_oracle(case, dtype):
+    """`linear_scan` on a CPU tensor (the kernel's plain version:
+    `linear_scan_chunked`, o cast to q's dtype) and `linear_scan_sequential`
+    against the Pallas kernel (interpret mode) and `ref.linear_scan`: o and
+    S_final.  Measured max over the grid, of max |reference|: float32 2.5e-7
+    (o) and 1.7e-7 (S_final), the sequential form 2.7e-7; bfloat16 3.0e-3
+    (o, rounded to bf16) and 1.7e-7 (S_final, float32)."""
+    dbr, chunk = case[4], case[7]
+    jx, tx = _scan_inputs(case, dtype)
+    o_k, s_k = pallas_ls(*jx, decay_before_read=dbr, chunk=chunk,
+                         interpret=True)
+    o_r, s_r = ref.linear_scan(*jx, decay_before_read=dbr)
+    o_p, s_p = ls.linear_scan(*tx, decay_before_read=dbr, chunk=chunk)
+    o_s, s_s = ls.linear_scan_sequential(*tx, decay_before_read=dbr)
+    assert o_p.dtype == tx[0].dtype and s_p.dtype == torch.float32
+    assert o_s.dtype == torch.float32 and s_s.dtype == torch.float32
+    tol = TOL["scan"][dtype]
+    assert _rel(o_p, o_k) <= tol and _rel(s_p, s_k) <= tol
+    assert _rel(o_p, o_r) <= tol and _rel(s_p, s_r) <= tol
+    assert _rel(o_s, o_r) <= TOL["scan"]["float32"]
+    assert _rel(s_s, s_r) <= TOL["scan"]["float32"]
+
+
+def test_scan_mixed_operand_dtypes():
+    """The SSM branch's mix: q and v bf16, k and w f32.  The plain version
+    returns o in bf16 and S_final in f32, and matches the Pallas kernel fed
+    the same mix within the bf16 tolerance."""
+    rng = np.random.default_rng(7)
+    shapes = ((4, 21, 16), (4, 21, 16), (4, 21, 64), (4, 21, 16))
+    raw = [rng.standard_normal(s, np.float32) for s in shapes]
+    raw[3] = np.exp(-np.abs(raw[3])).astype(np.float32)
+    dts = ("bfloat16", "float32", "bfloat16", "float32")
+    pairs = [_pair(x, dt) for x, dt in zip(raw, dts)]
+    o_k, s_k = pallas_ls(*(p[0] for p in pairs), decay_before_read=True,
+                         chunk=8, interpret=True)
+    o_p, s_p = ls.linear_scan(*(p[1] for p in pairs), decay_before_read=True,
+                              chunk=8)
+    assert o_p.dtype == torch.bfloat16 and s_p.dtype == torch.float32
+    assert _rel(o_p, o_k) <= TOL["scan"]["bfloat16"]
+    assert _rel(s_p, s_k) <= TOL["scan"]["float32"]
+
+
+def test_scan_dispatch_forms_agree():
+    """`ops.gated_linear_scan`'s three impls on the CPU agree; "chunked" and
+    "scan" return o in float32 as in the reference, "kernel" in q's dtype;
+    an unknown impl raises."""
+    jx, tx = _scan_inputs((2, 19, 8, 16, False, True, True, 8), "bfloat16")
+    outs = {impl: ops.gated_linear_scan(*tx, impl=impl, chunk=8)
+            for impl in ("kernel", "chunked", "scan")}
+    assert outs["kernel"][0].dtype == torch.bfloat16
+    assert outs["chunked"][0].dtype == outs["scan"][0].dtype == torch.float32
+    torch.testing.assert_close(outs["chunked"][0], outs["scan"][0],
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(outs["kernel"][1], outs["scan"][1],
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        ops.gated_linear_scan(*tx, impl="pallas")
+
+
+# --- the CUDA kernels (on the card only) -------------------------------------
+def _need_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+CARD_TOL = {"float32": 1e-4, "bfloat16": 4e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES + [
+    (2, 25, 5, 300, 300, 64, True, 128, None),
+    (1, 4, 2, 70, 70, 128, True, None, 50.0),
+    (1, 4, 4, 65, 65, 80, False, None, None),
+    (1, 2, 1, 40, 40, 256, True, 16, None)])
+def test_cuda_flash_attention_matches_plain(case, dtype):
+    """Kernel vs `mha_chunked` on the card, within chip_smoke.py's gates
+    (float32 1e-4, bfloat16 4e-2 of max |plain|); one launch per call."""
+    _need_gpu()
+    b, hq, hkv, sq, skv, d, causal, window, softcap = case
+    rng = np.random.default_rng(sum(case[:6]))
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(
+        "cuda", tdt) for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                               (b, hkv, skv, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.mha_chunked(q, k, v, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _rel(got, want) <= CARD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SCAN_CASES + [
+    (50, 300, 16, 64, True, False, True, 64),
+    (8, 200, 64, 64, False, True, True, 64),
+    (2, 20, 16, 1000, True, False, True, 64),
+    (2, 17, 130, 33, False, True, True, 64)])
+def test_cuda_linear_scan_matches_plain(case, dtype):
+    """Kernel vs `linear_scan_chunked` on the card, within chip_smoke.py's
+    gates; the extra cases tile a wide dv over many blocks and split dk
+    over lanes."""
+    _need_gpu()
+    _, tx = _scan_inputs(case, dtype)
+    tx = [x.cuda() if x is not None else None for x in tx]
+    dbr = case[4]
+    before = ls.linear_scan.launches
+    o, s = ls.linear_scan(*tx, decay_before_read=dbr)
+    torch.cuda.synchronize()
+    assert ls.linear_scan.launches == before + 1
+    o_p, s_p = ls.linear_scan_chunked(*tx, decay_before_read=dbr)
+    assert o.dtype == tx[0].dtype and s.dtype == torch.float32
+    assert _rel(o, o_p.to(o.dtype)) <= CARD_TOL[dtype]
+    assert _rel(s, s_p) <= CARD_TOL["float32"]
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
+    _need_gpu()
+    q = torch.randn((1, 2, 8, 16), device="cuda")
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):
+        big = torch.randn((1, 2, 8, 264), device="cuda")
+        fa.flash_attention(big, big, big)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q[:, :, :, :8], q)
+    with pytest.raises(ValueError):  # head_dim not the unit-stride axis
+        fa.flash_attention(q, q.transpose(2, 3).contiguous().transpose(2, 3),
+                           q)
+    with pytest.raises(RuntimeError):
+        fa.flash_attention(q.requires_grad_(), q, q)
+    x = torch.randn((2, 5, 16), device="cuda")
+    v = torch.randn((2, 5, 64), device="cuda")
+    with pytest.raises(TypeError):
+        ls.linear_scan(x.half(), x, v, x)
+    with pytest.raises(ValueError):
+        ls.linear_scan(x, x, v[:, :4], x)
+    with pytest.raises(ValueError):
+        ls.linear_scan(x, x, v, x.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError):
+        ls.linear_scan(x, x, v, x, s0=torch.zeros((2, 16, 8), device="cuda"))
+    with pytest.raises(RuntimeError):
+        ls.linear_scan(x.requires_grad_(), x, v, x)
+    with torch.no_grad():
+        o, _ = ls.linear_scan(x, x, v, x)
+    assert o.shape == (2, 5, 64)

@@ -8,23 +8,29 @@ In order, and any failure exits non-zero:
      the TF32 flags (both set False for the whole run, so that float32
      convolutions and matmuls are full float32);
   2. builds every CUDA kernel of the three paths from the sources in the
-     checkout (one nvcc per source, all six started together) and prints
-     each build's time and nvcc's register report;
+     checkout (one nvcc per source, all seven started together: flash
+     attention has a bf16 tensor-core and a float32 CUDA-core source) and
+     prints each build's time and nvcc's register report;
   3. holds each kernel to its plain PyTorch version on the card, in float32
      and bfloat16: the fused RHS on synthetic and real HIT states; the three
      channel kernels at the channel path's shapes and beyond; flash
-     attention and the linear scan at hymba-1.5b's shapes and at the other
-     corners of their contracts; then one RL interval of each CFD scenario
-     on the kernel path against the staged plain path, and hymba-1.5b at
-     full width in float32 (prefill of 2 x 1,100 tokens and 4 teacher-forced
-     decode steps) on the kernel path against the plain path;
+     attention (each instance, with the model's transposed views, D up to
+     256, ragged S) and the linear scan at hymba-1.5b's shapes and at the
+     other corners of their contracts; then one RL interval of each CFD
+     scenario on the kernel path against the staged plain path, and
+     hymba-1.5b at full width in float32 (prefill of 2 x 1,100 tokens and 4
+     teacher-forced decode steps) and in bf16 (the prefill) on the kernel
+     path against the plain path;
   4. times each kernel at its path's shape (16 envs; hymba's prefill of
      4 x 2,048 tokens): its device time (torch.profiler over back-to-back
      calls, in turns plain, kernel, kernel, plain), which the kernels'
      record reports as `ms`; one call alone with the wrapper's host work
      (CUDA events), `call_ms`; the same two for the plain version and,
      where one PyTorch call computes the same function, for that call; and
-     the bound, from the bytes and operations the call needs;
+     the bound, from the bytes and operations the call needs; for flash
+     attention at both hymba shapes also the float32 CUDA-core instance,
+     and the device kernels in the trace of five bf16 calls (the
+     tensor-core kernel alone);
   5. drives the three paths through their entry points, each with every
      launch count set to 0 just before it and read just after:
      `hit_les_24dof` through `repro_torch.launch.rl_train` (2 PPO iterations
@@ -34,9 +40,9 @@ In order, and any failure exits non-zero:
      exactly 2 x 20 x 26 x 5 times and wall_model_tau twice that (one call
      per wall); hymba-1.5b serving (bf16 weights from a seed,
      `lm.greedy_generate` of 32 new tokens for 4 prompts of 2,048 Zipf
-     tokens, then for 4 of 700) must launch flash_attention 32 times and
-     linear_scan 1,024 times per batch (32 layers x (1 prefill + 31 decode
-     steps)); then profiles one RL step of each CFD path, one HIT PPO epoch,
+     tokens, then for 4 of 700) must launch flash_attention 32 times, all on
+     its tensor-core instance, and linear_scan 1,024 times per batch (32
+     layers x (1 prefill + 31 decode steps)); then profiles one RL step of each CFD path, one HIT PPO epoch,
      one hymba prefill and one decode step (torch.profiler) to show where
      the time goes;
   6. prints one JSON line per the kernels' record, then the last line
@@ -77,10 +83,21 @@ TOL = {"float32": 1e-4, "bfloat16": 4e-2}
 # The two elementwise channel kernels compute one short formula per point in
 # float32 from the same inputs as their plain versions: float32 1e-5.
 TOL_ELEMENTWISE = {"float32": 1e-5, "bfloat16": 4e-2}
+# flash attention against mha_chunked: the float32 CUDA-core instance as
+# TOL; the bf16 tensor-core instance also rounds P to bf16 before P V,
+# which the plain version does not: measured 2.4e-3 to 4.8e-3 of max
+# |plain| over the 10 shapes below (a bf16 ulp of the output is 2^-8 to
+# 2^-7 of its magnitude), so 1.5e-2, tighter than the general bf16 gate.
+TOL_FLASH = {"float32": 1e-4, "bfloat16": 1.5e-2}
 # hymba-1.5b at full width in float32, kernel path against plain path: 32
 # layers of float32 math that differ only in the order of the attention and
 # scan sums (each within ~1e-6 of its plain version); 1e-4 of max |logit|.
 TOL_MODEL = 1e-4
+# the same in bf16 as served: 1e-1 of max |logit|, the pin of
+# tests/test_torch_lm.py::test_bf16_serving_matches_reference (32 layers of
+# bf16 activations, each op rounded to bf16 on both paths, where the two
+# paths' attention and scan round differently).
+TOL_MODEL_BF16 = 1e-1
 
 
 def ns_rhs_operations(batch: int, kx: int, ky: int, kz: int, n: int) -> int:
@@ -230,7 +247,8 @@ def traced(fn) -> tuple[float, list[tuple[float, int, str]]]:
 # the device functions of the port's own kernels, as the trace names them
 OWN_KERNELS = ("grad_pass", "div_pass", "dg_derivative3_kernel",
                "smagorinsky_kernel", "wall_model_kernel",
-               "flash_attention_kernel", "linear_scan_kernel")
+               "flash_attention_kernel", "flash_attention_tc_kernel",
+               "linear_scan_kernel")
 
 
 def profile_window(label: str, fn, card: str) -> None:
@@ -258,18 +276,22 @@ def profile_window(label: str, fn, card: str) -> None:
 
 
 def device_ms(fn, calls: int) -> float:
-    """Device time of one call of `fn`: the device time of every kernel in
-    a profiler trace of `calls` back-to-back calls, summed, over `calls`.
-    A trace that shows no device time (the profiler sometimes drops a
-    window's events) is taken again, up to three times in all; then CUDA
-    events around the same loop (which also count any gaps the host
-    leaves)."""
+    """Device time of one call of `fn`, from a profiler trace of `calls`
+    back-to-back calls: for each kernel name, the mean device time of its
+    launches in the trace times its launches per call (its count over
+    `calls`, rounded, at least 1), summed over the names.  The profiler
+    drops some of a window's events (3 to 10 of 50 launches on the H100,
+    once about half), which a plain sum over `calls` would count as time
+    saved.  A trace that shows no device time is taken again, up to
+    three times in all; then CUDA events around the same loop (which also
+    count any gaps the host leaves)."""
     import torch
 
     for _ in range(3):
         _, rows = traced(lambda: [fn() for _ in range(calls)])
         if rows:
-            return sum(r[0] for r in rows) / 1e3 / calls
+            return sum(us / n * max(1, round(n / calls))
+                       for us, n, _ in rows) / 1e3
         print("device time: the trace shows none")
     print("device time: CUDA events around the loop")
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -429,8 +451,9 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}")
 
     # --- 2. build: one nvcc per source, all started together -----------------
-    modules = (rhs, dg_derivative, smagorinsky, wall_model, flash_attention,
-               linear_scan)
+    sources = (rhs._SOURCE, dg_derivative._SOURCE, smagorinsky._SOURCE,
+               wall_model._SOURCE, *flash_attention.SOURCES.values(),
+               linear_scan._SOURCE)
 
     def build(source: str) -> float:
         t0 = time.perf_counter()
@@ -438,16 +461,20 @@ def main() -> int:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
-        build_s = dict(zip((m._SOURCE for m in modules),
-                           pool.map(build, (m._SOURCE for m in modules))))
-    print(f"built {len(modules)} sources in {time.perf_counter() - t0:.2f} s "
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        build_s = dict(zip(sources, pool.map(build, sources)))
+    print(f"built {len(sources)} sources in {time.perf_counter() - t0:.2f} s "
           f"wall, in parallel")
     for source, secs in build_s.items():
         _build.load(source)
         print(f"built {source} in {secs:.2f} s")
         for line in ptxas_report(_build.build_logs.get(source, "")):
             print("  ptxas:", line)
+    smem = _build.load(flash_attention.SOURCES["tensor_core"]) \
+        .flash_attention_tc_smem_bytes
+    print("  flash_attention_tc_kernel dynamic shared memory per block: "
+          + ", ".join(f"D<={dp} {smem(dp)} bytes"
+                      for dp in flash_attention.TC_TILES))
 
     # --- 3. kernel vs plain on the card --------------------------------------
     gen = torch.Generator().manual_seed(0)
@@ -525,30 +552,50 @@ def main() -> int:
                 errs["wall_model_tau"] = err
 
     # flash attention: hymba's prefill (window 1024 on 28 layers, full on 4)
-    # and the contract's other corners
+    # and the contract's other corners; bf16 runs the tensor-core instance,
+    # float32 the CUDA-core one.  "views": q, k, v as the model hands them
+    # over, (B, S, H, D) transposed to (B, H, S, D)
+    flash_cases = (
+        ("hymba SWA", (2, 25, 5, 2048, 2048, 64), dict(window=1024), False),
+        ("hymba global", (2, 25, 5, 2048, 2048, 64), {}, False),
+        ("D=128 GQA 2 softcap 50", (2, 8, 4, 512, 512, 128),
+         dict(softcap=50.0), False),
+        ("D=80", (2, 8, 8, 512, 512, 80), {}, False),
+        ("non-causal", (2, 8, 2, 512, 512, 64), dict(causal=False), False),
+        ("Sq=17 < Skv=300", (2, 8, 2, 17, 300, 64), {}, False),
+        ("ragged S=1000", (2, 8, 2, 1000, 1000, 64), dict(window=300),
+         False),
+        ("D=256", (2, 4, 2, 700, 700, 256), dict(window=100), False),
+        ("ragged S=2047", (2, 25, 5, 2047, 2047, 64), dict(window=1024),
+         False),
+        ("hymba SWA model views", (2, 25, 5, 2048, 2048, 64),
+         dict(window=1024), True))
     for dtype in (torch.float32, torch.bfloat16):
         tname = str(dtype).split(".")[-1]
-        for label, (b, hq, hkv, sq, skv, d), kw in (
-                ("hymba SWA", (2, 25, 5, 2048, 2048, 64), dict(window=1024)),
-                ("hymba global", (2, 25, 5, 2048, 2048, 64), {}),
-                ("D=128 GQA 2 softcap 50", (2, 8, 4, 512, 512, 128),
-                 dict(softcap=50.0)),
-                ("D=80", (2, 8, 8, 512, 512, 80), {}),
-                ("non-causal", (2, 8, 2, 512, 512, 64), dict(causal=False)),
-                ("Sq=17 < Skv=300", (2, 8, 2, 17, 300, 64), {}),
-                ("ragged S=1000", (2, 8, 2, 1000, 1000, 64),
-                 dict(window=300))):
-            q = torch.randn((b, hq, sq, d), generator=gen).to(dev, dtype)
-            k = torch.randn((b, hkv, skv, d), generator=gen).to(dev, dtype)
-            v = torch.randn((b, hkv, skv, d), generator=gen).to(dev, dtype)
+        kind = flash_attention.instance(dtype)
+        for label, (b, hq, hkv, sq, skv, d), kw, views in flash_cases:
+            if views:
+                q, k, v = (torch.randn((b, s_, h_, d), generator=gen).to(
+                    dev, dtype).transpose(1, 2) for s_, h_ in
+                    ((sq, hq), (skv, hkv), (skv, hkv)))
+            else:
+                q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
+                           for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                                         (b, hkv, skv, d)))
+            before = flash_attention.flash_attention.instance_launches[kind]
             got = flash_attention.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            err = parity(f"flash_attention {label} {tuple(q.shape)} kv "
-                         f"{tuple(k.shape)} {kw} {tname}", got,
+            if flash_attention.flash_attention.instance_launches[kind] \
+                    != before + 1:
+                raise AssertionError(f"flash_attention {tname} did not "
+                                     f"launch its {kind} instance")
+            err = parity(f"flash_attention [{kind}] {label} "
+                         f"{tuple(q.shape)} kv {tuple(k.shape)} {kw} "
+                         f"{tname}", got,
                          flash_attention.mha_chunked(q, k, v, **kw),
-                         TOL[tname])
-            if label == "hymba SWA" and dtype == torch.float32:
-                errs["flash_attention"] = err
+                         TOL_FLASH[tname])
+            if label == "hymba SWA":
+                errs[f"flash_attention {tname}"] = err
         # linear scan: hymba's GLA read at prefill and decode, RWKV6's read
         for label, (b, t, dk, dv), gla, with_u, with_s0 in (
                 ("hymba GLA", (50, 2048, 16, 64), True, False, False),
@@ -622,6 +669,33 @@ def main() -> int:
                                               scan_impl="chunked")),
            TOL_MODEL)
     del params32
+
+    # the same prefill in bf16 as served (bf16 weights and activations):
+    # the tensor-core flash instance against the plain path
+    cfg16 = dataclasses.replace(lm_cfg, param_dtype="bfloat16")
+    params16 = api.init(cfg16, seed=1)
+
+    def prefill16(cfg):
+        return api.prefill(params16, cfg, {"tokens": toks[:, :1100]},
+                           cache_len=1104)[0]
+
+    before = flash_attention.flash_attention.instance_launches["tensor_core"]
+    got16 = prefill16(cfg16)
+    torch.cuda.synchronize()
+    if flash_attention.flash_attention.instance_launches["tensor_core"] \
+            != before + lm_cfg.n_layers:
+        raise AssertionError("bf16 prefill did not run the tensor-core "
+                             "flash instance once per layer")
+    plain16 = prefill16(dataclasses.replace(cfg16, attn_impl="chunked",
+                                            scan_impl="chunked"))
+    parity("hymba-1.5b full width bf16, prefill 2 x 1100, logits: kernel "
+           "path vs plain path", got16, plain16, TOL_MODEL_BF16)
+    # the share of that difference that the attention kernel alone makes
+    parity("hymba-1.5b full width bf16, prefill 2 x 1100, logits: flash "
+           "kernel + plain scan vs plain path",
+           prefill16(dataclasses.replace(cfg16, scan_impl="chunked")),
+           plain16, TOL_MODEL_BF16)
+    del params16, got16, plain16
 
     # --- 4. time each kernel at its path's shape (16 envs, float32) ----------
     record = {}
@@ -699,18 +773,34 @@ def main() -> int:
     q = torch.randn((b, hq, sq, d), generator=gen).to(dev, bf16)
     k = torch.randn((b, hkv, sq, d), generator=gen).to(dev, bf16)
     v = torch.randn((b, hkv, sq, d), generator=gen).to(dev, bf16)
+    q32, k32, v32 = q.float(), k.float(), v.float()
     ones = torch.ones((sq, sq), dtype=torch.bool, device=dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    # what the bf16 call launches on the card: the tensor-core kernel alone
+    # (5 calls in a window; a window the profiler dropped is traced again)
+    for _ in range(3):
+        _, rows = traced(lambda: [flash_attention.flash_attention(
+            q, k, v, window=win) for _ in range(5)])
+        if rows:
+            break
+    names = [r[2] for r in rows]
+    print(f"flash_attention bf16 call, device kernels in its trace: {names}")
+    if not names or any("flash_attention_tc_kernel" not in n_ for n_ in names):
+        raise AssertionError(f"the bf16 flash_attention call launched "
+                             f"{names}, not its tensor-core kernel alone")
     for label, window, mask in (("window 1024 (28 layers)", win,
                                  ones.tril() & ~ones.tril(-win)),
                                 ("global (4 layers)", None, ones.tril())):
         print(f"time per call ({card}), flash_attention {label} q "
-              f"{tuple(q.shape)} kv {tuple(k.shape)} bf16:")
+              f"{tuple(q.shape)} kv {tuple(k.shape)} bf16 (float32 for the "
+              f"CUDA-core instance):")
         ms, call_ms = time_calls({
             "plain": lambda: flash_attention.mha_chunked(q, k, v,
                                                          window=window),
             "kernel": lambda: flash_attention.flash_attention(q, k, v,
                                                               window=window),
+            "kernel float32 (CUDA cores)": lambda:
+                flash_attention.flash_attention(q32, k32, v32, window=window),
             "library": lambda: sdpa(q, k, v, attn_mask=mask,
                                     enable_gqa=True)})
         parity("library call scaled_dot_product_attention(band mask, "
@@ -721,10 +811,17 @@ def main() -> int:
         bound = bound_ms(f"flash_attention {label}", 2 * nbytes(q, k),
                          flash_operations(b * hq, sq, sq, d, True, window),
                          ("bf16 tensor-core", PEAK_BF16_TC_PER_S))
+        tc, lib = ms["kernel"], ms["library"]
+        print(f"  flash_attention {label} ({card}): tensor-core instance "
+              f"{tc:.7f} ms, {'below' if tc < lib else 'NOT below'} "
+              f"scaled_dot_product_attention's {lib:.7f} ms ({lib / tc:.3f}"
+              f"x); {100 * bound[0] / tc:.3f}% of the bound's speed "
+              f"({bound[0]:.7f} ms by {bound[1]}); CUDA-core float32 "
+              f"instance {ms['kernel float32 (CUDA cores)']:.7f} ms")
         if window:
             record["flash_attention"] = dict(
-                ms=ms, call_ms=call_ms, library_ms=ms["library"],
-                bound=bound)
+                ms=ms, call_ms=call_ms, library_ms=lib, bound=bound)
+    del q32, k32, v32
 
     n, rows = lm_cfg.ssm_state, b * hq
     qs = torch.randn((rows, sq, n), generator=gen).to(dev, bf16)
@@ -808,6 +905,8 @@ def main() -> int:
     if per_batch[4:] != [32, 1024]:  # 32 layers x (1 prefill + 31 decodes)
         raise AssertionError(f"hymba serving arithmetic gives {per_batch}")
     lm_launches = [0] * len(counters)
+    by_instance = flash_attention.flash_attention.instance_launches
+    flash_instances = dict.fromkeys(by_instance, 0)
     for seed, n_prompts, s_len in ((3, 4, 2048), (4, 4, 700)):
         prompt = lm_batch(seed, n_prompts, s_len, lm_cfg.vocab)["tokens"].to(
             dev)
@@ -815,11 +914,14 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         for fn in counters:
             fn.launches = 0
+        for key in by_instance:
+            by_instance[key] = 0
         t0 = time.perf_counter()
         out = lm.greedy_generate(params, serve_cfg, prompt, n_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = [fn.launches for fn in counters]
+        instances = dict(by_instance)
         peak = torch.cuda.max_memory_allocated()
         label = f"hymba-1.5b greedy_generate {n_prompts} x {s_len} tokens"
         print(f"main path {label} + {n_new} new: {wall:.3f} s wall, "
@@ -830,6 +932,13 @@ def main() -> int:
         if counts != per_batch:
             raise AssertionError(f"{label}: launches {counts}, expected "
                                  f"{per_batch}")
+        print(f"  flash_attention launches by instance: {instances}")
+        if instances != {"cuda_core": 0, "tensor_core": lm_cfg.n_layers}:
+            raise AssertionError(f"{label}: flash instances {instances}, "
+                                 f"expected all {lm_cfg.n_layers} on the "
+                                 f"tensor cores")
+        for key, n_ in instances.items():
+            flash_instances[key] += n_
         if out.shape != (n_prompts, n_new) or out.dtype != torch.int64 \
                 or not bool(((out >= 0) & (out < lm_cfg.vocab)).all()):
             raise AssertionError(f"{label}: tokens {out.dtype} "
@@ -864,6 +973,8 @@ def main() -> int:
     if lm_launches != [2 * c for c in per_batch]:
         raise AssertionError(f"serving launches {lm_launches}, expected "
                              f"{[2 * c for c in per_batch]}")
+    print(f"main path hymba-1.5b serving, both batches: flash_attention "
+          f"launches by instance {flash_instances}")
     launches.update(zip(names[4:], lm_launches[4:]))
 
     # --- 5b. where the paths' time goes (after the counts were read) ---------
@@ -904,9 +1015,16 @@ def main() -> int:
                "dg_derivative3": ("dg_derivative.cu", "dg_derivative.py:60"),
                "smagorinsky_nut": ("smagorinsky.cu", "smagorinsky.py:46"),
                "wall_model_tau": ("wall_model.cu", "wall_model.py:46"),
-               "flash_attention": ("flash_attention.cu",
+               "flash_attention": ("flash_attention_tc.cu",
                                    "flash_attention.py:99"),
                "linear_scan": ("linear_scan.cu", "linear_scan.py:105")}
+    # flash attention: the main path's bf16 tensor-core instance; the
+    # float32 CUDA-core instance beside it
+    errs["flash_attention"] = errs["flash_attention bfloat16"]
+    record["flash_attention"]["extra"] = {"float32_instance": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "max_abs_err": errs["flash_attention float32"],
+        "ms": record["flash_attention"]["ms"]["kernel float32 (CUDA cores)"]}}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -921,6 +1039,7 @@ def main() -> int:
         "bound_ms": rec["bound"][0],
         "bound_by": rec["bound"][1],
         "library_ms": rec["library_ms"],
+        **rec.get("extra", {}),
     } for name, rec in record.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,6 @@
-// Flash attention forward for NVIDIA Hopper (sm_90a).
+// Flash attention forward for NVIDIA Hopper (sm_90a): the float32 instance
+// of the port's `flash_attention`, on the CUDA cores (the bfloat16 instance
+// is the tensor-core kernel of flash_attention_tc.cu).
 //
 // Replaces `repro/kernels/flash_attention.py:flash_attention` (a Pallas TPU
 // kernel) and computes what its oracle `repro/kernels/ref.py:mha_chunked`
@@ -8,16 +10,16 @@
 // h / (Hq / Hkv) (GQA), query i sits at absolute position i + Skv - Sq (the
 // decode convention), causal keeps j <= that position, a window keeps
 // j > position - window, and cap(x) = softcap * tanh(x / softcap).  A row
-// with no visible key is 0.  Inputs are float32 or bfloat16 (all three
-// alike) with any strides but a unit one along D; o is contiguous, in the
-// inputs' dtype; the math is float32.
+// with no visible key is 0.  Inputs are float32 with any strides but a
+// unit one along D; o is contiguous float32.  Exact float32 math, no TF32:
+// the full-width float32 check of hymba-1.5b rests on it.
 //
 // What bounds it: at hymba-1.5b's prefill (B=4, Hq=25, Hkv=5, S=2048,
 // D=64, window 1024) the band of visible (q, k) pairs is 1.57M per head,
 // 4 D operations each for the two products: 40 GFLOP for ~13 MB of I/O, so
 // operations bound it on the card.  This kernel does its products on the
 // CUDA cores in float32 (67 TFLOP/s peak), not on the tensor cores: a
-// simple first port, exact in float32 inputs.
+// simple first port, exact in float32.
 //
 // Design: one block of 256 threads per (64-row query tile, b, h).  It keeps
 // the query tile in shared memory, walks the 64-key tiles that intersect
@@ -31,7 +33,6 @@
 // query tiles are launched last-first, so the longest (most keys under a
 // causal mask) start first.  D is padded to 64, 128 or 256 (one template
 // instance each); shared memory is 68, 117 or 217 KB.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -42,13 +43,7 @@ constexpr int kThreads = 256;        // 16 x 16 threads, 4 x 4 values each
 constexpr int kLd = kTile + 4;       // row stride of the transposed tiles
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 struct Params {
   const void* q;
@@ -256,8 +251,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long q_ss, long long k_sb, long long k_sh,
                            long long k_ss, long long v_sb, long long v_sh,
                            long long v_ss, int causal, int window,
-                           float softcap, float scale, int is_bf16,
-                           void* stream) {
+                           float softcap, float scale, void* stream) {
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv || sq < 1 || skv < 0 ||
       d < 1 || d > 256 || sq > 65535 * kTile)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -265,8 +259,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                  d,    q_sb, q_sh, q_ss, k_sb, k_sh,   k_ss,    v_sb,
                  v_sh, v_ss, causal, window, softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_bf16 ? dispatch<__nv_bfloat16>(p, batch, s)
-                                  : dispatch<float>(p, batch, s));
+  return static_cast<int>(dispatch<float>(p, batch, s));
 }
 
 const char* flash_attention_error_string(int code) {

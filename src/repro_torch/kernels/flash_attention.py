@@ -1,5 +1,5 @@
-"""Flash attention forward (online-softmax GQA attention), as the CUDA kernel
-(`csrc/flash_attention.cu`) and its plain PyTorch versions.
+"""Flash attention forward (online-softmax GQA attention), as two CUDA
+kernels and their plain PyTorch versions.
 
 `flash_attention` replaces the Pallas TPU kernel
 `repro/kernels/flash_attention.py:flash_attention`, with its whole contract:
@@ -7,14 +7,25 @@ GQA (query head h reads kv head h // (Hq / Hkv)), causal masking in the
 decode convention (q holds the last Sq of the Skv positions), a sliding
 window (key k is seen by query q iff k > q - window), logit softcap
 (cap * tanh(x / cap)), an explicit scale, ragged Sq and Skv, rows with no
-valid key giving 0, float32 math and the output in q's dtype.  It is forward
-only: on a CUDA tensor it raises if grad mode is on and an input requires
-grad (the backward waits for the training slice).
+valid key giving 0, float32 statistics and the output in q's dtype.  It is
+forward only: on a CUDA tensor it raises if grad mode is on and an input
+requires grad (the backward waits for the training slice).
+
+The instance follows the dtype (`instance`):
+  bfloat16 on CUDA  "tensor_core": `csrc/flash_attention_tc.cu`, wgmma in
+                    bf16 with float32 accumulators, tiles loaded by TMA.
+                    P is rounded to bf16 before P V.  TMA takes 16-byte-
+                    aligned bases and strides that are multiples of 16 bytes
+                    (`tma_strides`); the wrapper raises on any other view.
+  float32 on CUDA   "cuda_core": `csrc/flash_attention.cu`, exact float32 on
+                    the CUDA cores (no TF32).
+  any CPU tensor    `mha_chunked`.
 
 `mha_chunked` ports `repro/kernels/ref.py:mha_chunked` (online softmax over
-kv blocks) and is the kernel's plain version: a CPU tensor takes it.  `mha`
-ports `ref.mha` (the whole logits matrix).  `flash_attention.launches`
-counts the calls that launched the kernel.
+kv blocks) and is the kernels' plain version.  `mha` ports `ref.mha` (the
+whole logits matrix).  `flash_attention.launches` counts the calls that
+launched a kernel, `flash_attention.instance_launches` those of each
+instance.
 """
 from __future__ import annotations
 
@@ -24,12 +35,65 @@ import torch
 
 from . import _build
 
-_SOURCE = "flash_attention.cu"
+SOURCES = {"cuda_core": "flash_attention.cu",
+           "tensor_core": "flash_attention_tc.cu"}
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
              + (ctypes.c_longlong,) * 9
-             + (ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                ctypes.c_int, ctypes.c_void_p))
+             + (ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float))
+_ARGTYPES_CUDA_CORE = _ARGTYPES + (ctypes.c_void_p,)
+_ARGTYPES_TENSOR_CORE = _ARGTYPES + (ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p)
 MAX_HEAD_DIM = 256
+# the tensor-core instances: head dim padded to -> (query rows, keys) per
+# tile, as `Tile` in csrc/flash_attention_tc.cu
+TC_TILES = {64: (128, 128), 128: (128, 64), 256: (64, 64)}
+TMA_ALIGN = 16      # bytes: TMA's base address and stride granularity
+TMA_MAX_STRIDE = 1 << 40
+
+
+def instance(dtype: torch.dtype) -> str:
+    """The kernel that takes a CUDA tensor of `dtype`."""
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "cuda_core"
+    raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
+                    f"got {dtype}")
+
+
+def padded_head_dim(d: int) -> int:
+    """The tensor-core instance a head dim runs in: 64, 128 or 256."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} outside the kernel's 1..."
+                         f"{MAX_HEAD_DIM}")
+    return next(dp for dp in sorted(TC_TILES) if d <= dp)
+
+
+def tma_strides(t: torch.Tensor, name: str = "tensor"
+                ) -> tuple[int, int, int]:
+    """Byte strides of the (B, H, S) axes of a (B, H, S, D) bf16 tensor as
+    the TMA descriptor takes them; raises ValueError on a view TMA cannot
+    read (a base not 16-byte aligned, a stride not a multiple of 16 bytes
+    or past 2^40).  An axis of size 1 is never stepped along, so its stride
+    is replaced by the tensor's span rounded up to 16 bytes."""
+    size = t.element_size()
+    if t.data_ptr() % TMA_ALIGN:
+        raise ValueError(f"{name}: base address {t.data_ptr():#x} is not "
+                         f"{TMA_ALIGN}-byte aligned, as TMA needs")
+    span = -(-(t.numel() * size) // TMA_ALIGN) * TMA_ALIGN
+    out = []
+    for axis in range(3):
+        if t.shape[axis] == 1:
+            out.append(max(span, TMA_ALIGN))
+            continue
+        stride = t.stride(axis) * size
+        if stride % TMA_ALIGN or not 0 < stride < TMA_MAX_STRIDE:
+            raise ValueError(
+                f"{name}: stride {t.stride(axis)} of axis {axis} is {stride} "
+                f"bytes; TMA needs a positive multiple of {TMA_ALIGN} bytes "
+                f"below 2^40 (shape {tuple(t.shape)}, strides {t.stride()})")
+        out.append(stride)
+    return out[0], out[1], out[2]
 
 
 def _grouped(q: torch.Tensor, hkv: int) -> torch.Tensor:
@@ -111,10 +175,8 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   window: int | None, softcap: float | None) -> None:
-    """Raise on anything the kernel does not take."""
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+    """Raise on anything the kernel of q's dtype does not take."""
+    instance(q.dtype)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
@@ -126,14 +188,15 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or k.shape[3] != d or hq % k.shape[1]:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)}: "
                          f"batch and head_dim must agree, Hq % Hkv == 0")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} outside the kernel's 1..."
-                         f"{MAX_HEAD_DIM}")
+    padded_head_dim(d)
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on "
                          f"{v.device}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v must have a unit stride along head_dim")
+    if instance(q.dtype) == "tensor_core":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            tma_strides(t, name)
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
     if softcap is not None and not softcap > 0:
@@ -150,9 +213,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
-    dtype.  On the CPU the plain `mha_chunked`; on a CUDA tensor the kernel,
-    which takes strided views whose last axis is contiguous (the model's
-    head-transposed v) and writes a contiguous output."""
+    dtype.  On the CPU the plain `mha_chunked`; on a CUDA tensor the kernel
+    of its dtype (`instance`), which takes strided views whose last axis is
+    contiguous (the model's head-transposed q, k, v) and writes a
+    contiguous output."""
     if q.device.type == "cpu":
         return mha_chunked(q, k, v, causal=causal, window=window,
                            softcap=softcap, scale=scale)
@@ -166,14 +230,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     scale = d ** -0.5 if scale is None else scale
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.launcher(_SOURCE, "flash_attention", _ARGTYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, hq, hkv, sq, skv, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(causal), int(window or 0), float(softcap or 0.0), float(scale),
-        int(q.dtype == torch.bfloat16), stream)
+    kind = instance(q.dtype)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, hq, hkv, sq, skv, d)
+    tail = (int(causal), int(window or 0), float(softcap or 0.0),
+            float(scale))
+    if kind == "tensor_core":
+        strides = (*tma_strides(q, "q"), *tma_strides(k, "k"),
+                   *tma_strides(v, "v"))
+        _build.launcher(SOURCES[kind], "flash_attention_tc",
+                        _ARGTYPES_TENSOR_CORE)(
+            *head, *strides, *tail, *TC_TILES[padded_head_dim(d)], stream)
+    else:
+        _build.launcher(SOURCES[kind], "flash_attention",
+                        _ARGTYPES_CUDA_CORE)(
+            *head, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *tail,
+            stream)
     flash_attention.launches += 1
+    flash_attention.instance_launches[kind] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.instance_launches = dict.fromkeys(SOURCES, 0)

@@ -363,10 +363,11 @@ def test_bf16_serving_matches_reference(f32):
 def test_model_hands_the_kernels_what_their_cuda_wrappers_take(
         f32, monkeypatch):
     """On the card the wrappers check their inputs and raise on what the
-    kernels do not take (dtype, shape, strides, grad).  Here, on the CPU,
-    run those checks on every call the model makes in prefill and decode
-    (where T = 1 once made the scan's w a stride-0 view), then the plain
-    version."""
+    kernels do not take (dtype, shape, strides, grad, and for bf16
+    attention TMA's 16-byte bases and strides).  Here, on the CPU, run
+    those checks on every call the model makes in prefill and decode
+    (where T = 1 once made the scan's w a stride-0 view), in float32 and
+    in bf16 as served, then the plain version."""
     _, pcfg, _, params, tokens = f32
     seen = []
 
@@ -392,6 +393,20 @@ def test_model_hands_the_kernels_what_their_cuda_wrappers_take(
     lm.decode_step(params, pcfg, torch.argmax(logits, -1), caches)
     assert seen.count("flash_attention") == 8
     assert seen.count("linear_scan") == 16
+    # bf16 as served: every attention call goes to the tensor-core instance,
+    # whose checks include the TMA layout of the model's transposed views
+    tma_checked = []
+    tma_strides = fa.tma_strides
+    monkeypatch.setattr(fa, "tma_strides", lambda t, name="tensor": (
+        tma_checked.append(name), tma_strides(t, name))[1])
+    cfg16 = dataclasses.replace(pcfg, dtype="bfloat16",
+                                param_dtype="bfloat16")
+    params16 = api.init(cfg16, device="cpu")
+    logits, caches = lm.prefill(params16, cfg16, tokens[:, :PROMPT],
+                                cache_len=PROMPT + 2)
+    lm.decode_step(params16, cfg16, torch.argmax(logits, -1), caches)
+    assert seen.count("flash_attention") == 16
+    assert tma_checked == ["q", "k", "v"] * 8
 
 
 def test_decode_matches_teacher_forcing(f32):

@@ -116,6 +116,86 @@ def test_attention_dispatch_forms_agree():
         ops.attention(q, k, v, impl="flash")
 
 
+def test_flash_instance_follows_dtype():
+    """bf16 goes to the tensor-core kernel, float32 to the CUDA-core one;
+    any other dtype raises, as `_check_inputs` does."""
+    assert fa.instance(torch.bfloat16) == "tensor_core"
+    assert fa.instance(torch.float32) == "cuda_core"
+    assert set(fa.SOURCES) == set(fa.flash_attention.instance_launches)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            fa.instance(dtype)
+
+
+@pytest.mark.parametrize("d,dp", [(1, 64), (16, 64), (64, 64), (65, 128),
+                                  (80, 128), (128, 128), (129, 256),
+                                  (256, 256)])
+def test_flash_head_dim_padding(d, dp):
+    """D pads to the tensor-core instance 64, 128 or 256; D outside
+    1..256 raises."""
+    assert fa.padded_head_dim(d) == dp
+    assert dp in fa.TC_TILES
+
+
+def test_flash_head_dim_out_of_range():
+    for d in (0, 257):
+        with pytest.raises(ValueError):
+            fa.padded_head_dim(d)
+
+
+def test_flash_tc_tiles_match_the_cuda_source():
+    """`TC_TILES` (what the wrapper passes and the kernel checks) is the
+    `Tile` table of csrc/flash_attention_tc.cu: 64 query rows per consumer
+    warpgroup, keys per tile; every box fits TMA's 256-row limit and the
+    shared memory fits the card's 227 KB."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(fa.__file__).parent / "csrc"
+           / fa.SOURCES["tensor_core"]).read_text()
+    table = {int(dp): (64 * int(nc), int(bn), int(stages))
+             for dp, nc, bn, stages in re.findall(
+                 r"struct Tile<(\d+)> \{\s*static constexpr int NC = (\d+), "
+                 r"BN = (\d+), STAGES = (\d+);", src)}
+    assert {dp: t[:2] for dp, t in table.items()} == fa.TC_TILES
+    for dp, (bm, bn, stages) in table.items():
+        assert bm <= 256 and bn <= 256 and bn % 16 == 0
+        smem = 1024 + (bm + 2 * stages * bn) * dp * 2 + 8 * (1 + 3 * stages)
+        assert smem <= 232448
+
+
+def test_flash_tma_strides_of_model_views():
+    """The model's q/k/v are (B, S, H, D) transposed to (B, H, S, D): TMA
+    takes them as they are, with byte strides in (B, H, S) order; an axis
+    of size 1 gets a stride TMA takes, whatever its own."""
+    x = torch.zeros((2, 40, 5, 16), dtype=torch.bfloat16).transpose(1, 2)
+    assert fa.tma_strides(x) == (40 * 5 * 16 * 2, 16 * 2, 5 * 16 * 2)
+    one = torch.zeros((1, 40, 1, 64), dtype=torch.bfloat16).transpose(1, 2)
+    sb, sh, ss = fa.tma_strides(one)
+    assert ss == 64 * 2 and sb % 16 == 0 and sh % 16 == 0
+    assert sb > 0 and sh > 0
+
+
+@pytest.mark.parametrize("bad", ["odd_head_dim", "offset_base",
+                                 "sliced_seq"])
+def test_flash_tma_strides_raise_on_what_tma_cannot_take(bad):
+    """A stride that is not a multiple of 16 bytes or a base that is not
+    16-byte aligned raises ValueError, as `_check_inputs` does for a bf16
+    CUDA call; nothing is copied."""
+    base = torch.zeros((2, 4, 32, 24), dtype=torch.bfloat16)
+    t = {"odd_head_dim": base[..., :12].reshape(2, 4, 32, 12)[..., :7]
+         .contiguous(),
+         "offset_base": base.flatten()[4:4 + 2 * 4 * 32 * 16].view(
+             2, 4, 32, 16),
+         "sliced_seq": base[:, :, :, :20].contiguous()[:, :, ::3]}[bad]
+    if bad == "offset_base":
+        assert t.data_ptr() % 16 == 8
+    with pytest.raises(ValueError):
+        fa.tma_strides(t)
+    with pytest.raises(ValueError):
+        fa._check_inputs(t, t, t, None, None)
+
+
 # --- linear scan --------------------------------------------------------------
 # (b, t, dk, dv, decay_before_read, with_u, with_s0, chunk): both reads,
 # with and without u / s0, ragged T, T = 1
@@ -216,6 +296,9 @@ def _need_gpu():
 
 
 CARD_TOL = {"float32": 1e-4, "bfloat16": 4e-2}
+# flash attention's bf16 instance (tensor cores, P rounded to bf16 before
+# P V): chip_smoke.py's pin, 1.5e-2 (measured there up to 4.8e-3)
+FLASH_CARD_TOL = {"float32": 1e-4, "bfloat16": 1.5e-2}
 
 
 @pytest.mark.cuda
@@ -224,10 +307,18 @@ CARD_TOL = {"float32": 1e-4, "bfloat16": 4e-2}
     (2, 25, 5, 300, 300, 64, True, 128, None),
     (1, 4, 2, 70, 70, 128, True, None, 50.0),
     (1, 4, 4, 65, 65, 80, False, None, None),
-    (1, 2, 1, 40, 40, 256, True, 16, None)])
+    (1, 2, 1, 40, 40, 256, True, 16, None),
+    (1, 2, 1, 200, 200, 256, False, None, 30.0),
+    (1, 5, 1, 2047, 2047, 64, True, 1024, None),
+    (1, 4, 2, 130, 130, 128, True, None, None),
+    (2, 4, 2, 12, 8, 64, True, None, None),
+    (1, 25, 5, 129, 1100, 64, True, 1024, None)])
 def test_cuda_flash_attention_matches_plain(case, dtype):
-    """Kernel vs `mha_chunked` on the card, within chip_smoke.py's gates
-    (float32 1e-4, bfloat16 4e-2 of max |plain|); one launch per call."""
+    """Each instance (bf16: tensor cores, float32: CUDA cores) vs
+    `mha_chunked` on the card, within chip_smoke.py's gates (float32 1e-4,
+    bfloat16 1.5e-2 of max |plain|); one launch per call, of its instance.
+    The cases cover D 16 to 256 (80 padded to 128), S that is no multiple
+    of any tile, and Sq > Skv (rows with no key give 0)."""
     _need_gpu()
     b, hq, hkv, sq, skv, d, causal, window, softcap = case
     rng = np.random.default_rng(sum(case[:6]))
@@ -236,13 +327,41 @@ def test_cuda_flash_attention_matches_plain(case, dtype):
         "cuda", tdt) for s in ((b, hq, sq, d), (b, hkv, skv, d),
                                (b, hkv, skv, d)))
     kw = dict(causal=causal, window=window, softcap=softcap)
+    kind = fa.instance(tdt)
     before = fa.flash_attention.launches
+    before_kind = fa.flash_attention.instance_launches[kind]
     got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
+    assert fa.flash_attention.instance_launches[kind] == before_kind + 1
     want = fa.mha_chunked(q, k, v, **kw)
     assert got.dtype == want.dtype and got.shape == want.shape
-    assert _rel(got, want) <= CARD_TOL[dtype]
+    assert _rel(got, want) <= FLASH_CARD_TOL[dtype]
+    if causal and sq > skv:
+        assert torch.all(got[:, :, :sq - skv] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_cuda_flash_attention_takes_the_models_views(d, dtype):
+    """q, k, v as `models/attention.py:_qkv` hands them over: (B, S, H, D)
+    projections transposed to (B, H, S, D), read in place by TMA (bf16)
+    or by strided loads (float32)."""
+    _need_gpu()
+    rng = np.random.default_rng(d)
+    tdt = getattr(torch, dtype)
+    b, s, hq, hkv = 2, 333, 10, 2
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        "cuda", tdt).transpose(1, 2) for shape in ((b, s, hq, d),
+                                                   (b, s, hkv, d),
+                                                   (b, s, hkv, d)))
+    assert not q.is_contiguous()
+    got = fa.flash_attention(q, k, v, window=100)
+    torch.cuda.synchronize()
+    want = fa.mha_chunked(q.contiguous(), k.contiguous(), v.contiguous(),
+                          window=100)
+    assert _rel(got, want) <= FLASH_CARD_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -288,6 +407,13 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
                            q)
     with pytest.raises(RuntimeError):
         fa.flash_attention(q.requires_grad_(), q, q)
+    # bf16 views that TMA cannot read raise; nothing is copied
+    h = torch.randn((1, 2, 32, 20), device="cuda").bfloat16()
+    with pytest.raises(ValueError):  # rows 40 bytes apart
+        fa.flash_attention(h[..., :16], h[..., :16], h[..., :16])
+    with pytest.raises(ValueError):  # base 8 bytes past 16-byte alignment
+        g = h.flatten()[4:4 + 2 * 32 * 16].view(1, 2, 32, 16)
+        fa.flash_attention(g, g, g)
     x = torch.randn((2, 5, 16), device="cuda")
     v = torch.randn((2, 5, 64), device="cuda")
     with pytest.raises(TypeError):

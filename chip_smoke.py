@@ -8,11 +8,16 @@ In order, and any failure exits non-zero:
      the TF32 flags (both set False for the whole run, so that float32
      convolutions and matmuls are full float32);
   2. builds every CUDA kernel of the three paths from the sources in the
-     checkout (one nvcc per source, all seven started together: flash
-     attention has a bf16 tensor-core and a float32 CUDA-core source) and
-     prints each build's time and nvcc's register report;
+     checkout (one nvcc per source, all eight started together: the fused
+     RHS has a cluster and a two-pass source, flash attention a bf16
+     tensor-core and a float32 CUDA-core one) and prints each build's time
+     and nvcc's register report (a spill in the RHS cluster kernel fails),
+     then the RHS cluster plans of 24-DOF and 32-DOF and how many of their
+     clusters the card holds at once;
   3. holds each kernel to its plain PyTorch version on the card, in float32
-     and bfloat16: the fused RHS on synthetic and real HIT states; the three
+     and bfloat16: the fused RHS, both instances, on synthetic and real HIT
+     states (24-DOF, 32-DOF, n=3 K=3, a non-cubic mesh), the cluster
+     instance also bit for bit against itself; the three
      channel kernels at the channel path's shapes and beyond; flash
      attention (each instance, with the model's transposed views, D up to
      256, ragged S) and the linear scan at hymba-1.5b's shapes and at the
@@ -27,7 +32,10 @@ In order, and any failure exits non-zero:
      record reports as `ms`; one call alone with the wrapper's host work
      (CUDA events), `call_ms`; the same two for the plain version and,
      where one PyTorch call computes the same function, for that call; and
-     the bound, from the bytes and operations the call needs; for flash
+     the bound, from the bytes and operations the call needs; for the fused
+     RHS both instances at 24-DOF and 32-DOF in float32 and bf16, and the
+     device kernels in the trace of 50 calls (the cluster kernel alone);
+     for flash
      attention at both hymba shapes also the float32 CUDA-core instance,
      and the device kernels in the trace of five bf16 calls (the
      tensor-core kernel alone);
@@ -35,7 +43,8 @@ In order, and any failure exits non-zero:
      launch count set to 0 just before it and read just after:
      `hit_les_24dof` through `repro_torch.launch.rl_train` (2 PPO iterations
      + 1 evaluation, 16 envs) must launch the fused RHS exactly 3 episodes x
-     50 steps x 13 substeps x 5 stages times; `channel_wm` (1 iteration + 1
+     50 steps x 13 substeps x 5 stages times, all on its cluster instance;
+     `channel_wm` (1 iteration + 1
      evaluation, 16 envs) must launch dg_derivative3 and smagorinsky_nut
      exactly 2 x 20 x 26 x 5 times and wall_model_tau twice that (one call
      per wall); hymba-1.5b serving (bf16 weights from a seed,
@@ -57,6 +66,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -202,13 +212,14 @@ def scan_operations(rows: int, t: int, dk: int, dv: int, gla: bool) -> int:
     return rows * t * dk * dv * (5 if gla else 7)
 
 
-def synthetic_state(gen, shape_prefix, cfg, device):
+def synthetic_state(gen, shape_prefix, cfg, device, elems=None):
     """Physically plausible conservative state (as the JAX parity tests make
-    them): rho ~ 1, subsonic velocity, pressure well clear of vacuum."""
+    them): rho ~ 1, subsonic velocity, pressure well clear of vacuum; on
+    cfg's cubic mesh unless `elems` gives (Kx, Ky, Kz)."""
     import torch
 
     n, k = cfg.n_poly + 1, cfg.n_elem
-    mesh = tuple(shape_prefix) + (k, k, k, n, n, n)
+    mesh = tuple(shape_prefix) + (elems or (k, k, k)) + (n, n, n)
     rho = 1.0 + 0.1 * torch.rand(mesh + (1,), generator=gen)
     vel = 0.3 * torch.randn(mesh + (3,), generator=gen)
     p = 7.0 + 0.5 * torch.rand(mesh + (1,), generator=gen)
@@ -245,7 +256,8 @@ def traced(fn) -> tuple[float, list[tuple[float, int, str]]]:
 
 
 # the device functions of the port's own kernels, as the trace names them
-OWN_KERNELS = ("grad_pass", "div_pass", "dg_derivative3_kernel",
+OWN_KERNELS = ("ns_rhs_cluster_kernel", "grad_pass", "div_pass",
+               "dg_derivative3_kernel",
                "smagorinsky_kernel", "wall_model_kernel",
                "flash_attention_kernel", "flash_attention_tc_kernel",
                "linear_scan_kernel")
@@ -370,9 +382,10 @@ def parity(label: str, got, want, tol: float) -> float:
 
 def train(env_name: str, n_iter: int, counters: list) -> tuple:
     """`rl_train` on `env_name` with 16 envs, `n_iter` PPO iterations and an
-    evaluation after the last; every counter in `counters` is set to 0 just
-    before and read just after.  Returns (history, launches, wall s,
-    checkpoint step), after checking returns and the checkpoint."""
+    evaluation after the last; every counter in `counters` (and its counts
+    by instance) is set to 0 just before and read just after.  Returns
+    (history, launches, wall s, checkpoint step), after checking returns and
+    the checkpoint."""
     import torch
 
     from repro_torch.core import checkpoints
@@ -381,6 +394,8 @@ def train(env_name: str, n_iter: int, counters: list) -> tuple:
     with tempfile.TemporaryDirectory() as ckpt:
         for fn in counters:
             fn.launches = 0
+            for key in getattr(fn, "instance_launches", {}):
+                fn.instance_launches[key] = 0
         t0 = time.perf_counter()
         history = rl_train.main([
             "--env", env_name, "--n-envs", "16", "--iterations", str(n_iter),
@@ -451,7 +466,8 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}")
 
     # --- 2. build: one nvcc per source, all started together -----------------
-    sources = (rhs._SOURCE, dg_derivative._SOURCE, smagorinsky._SOURCE,
+    sources = (*rhs.SOURCES.values(), dg_derivative._SOURCE,
+               smagorinsky._SOURCE,
                wall_model._SOURCE, *flash_attention.SOURCES.values(),
                linear_scan._SOURCE)
 
@@ -470,6 +486,28 @@ def main() -> int:
         print(f"built {source} in {secs:.2f} s")
         for line in ptxas_report(_build.build_logs.get(source, "")):
             print("  ptxas:", line)
+    spills = [line for line in ptxas_report(
+        _build.build_logs.get(rhs.SOURCES["cluster"], ""))
+        if any(int(b) for b in re.findall(r"(\d+) bytes spill", line))]
+    if spills:
+        raise AssertionError(f"the RHS cluster kernel spills: {spills}")
+    cluster_lib = _build.load(rhs.SOURCES["cluster"])
+    for label, cfg in (("24-DOF", relexi_hit.HIT24),
+                       ("32-DOF", relexi_hit.HIT32)):
+        k, n = cfg.n_elem, cfg.n_poly + 1
+        plan = rhs.cluster_plan(k, k, k, n, torch.float32)
+        elems = k**3 // plan.ctas
+        carved = cluster_lib.ns_rhs_cluster_smem_bytes(n, elems)
+        if carved != plan.smem_bytes:
+            raise AssertionError(f"{label}: the kernel carves {carved} "
+                                 f"bytes, cluster_plan reckons "
+                                 f"{plan.smem_bytes}")
+        active = {str(dt).split(".")[-1]: rhs.max_active_clusters(
+            k, k, k, n, dt) for dt in (torch.float32, torch.bfloat16)}
+        print(f"fused RHS cluster_plan {label} ({k}^3 elements, n={n}): "
+              f"{plan}, {elems} elements per CTA; B=16 is 16 clusters = "
+              f"{16 * plan.ctas} CTAs; cudaOccupancyMaxActiveClusters "
+              f"{active} ({card})")
     smem = _build.load(flash_attention.SOURCES["tensor_core"]) \
         .flash_attention_tc_smem_bytes
     print("  flash_attention_tc_kernel dynamic shared memory per block: "
@@ -478,15 +516,18 @@ def main() -> int:
 
     # --- 3. kernel vs plain on the card --------------------------------------
     gen = torch.Generator().manual_seed(0)
-    cases = [("24-DOF", (16,), relexi_hit.HIT24),
-             ("32-DOF", (4,), relexi_hit.HIT32),
-             ("n_poly=2 K=3", (3,), HITConfig(n_poly=2, n_elem=3))]
-    states = [(name, synthetic_state(gen, prefix, cfg, dev), cfg)
-              for name, prefix, cfg in cases]
+    cases = [("24-DOF", (16,), relexi_hit.HIT24, None),
+             ("32-DOF", (4,), relexi_hit.HIT32, None),
+             ("n_poly=2 K=3", (3,), HITConfig(n_poly=2, n_elem=3), None),
+             ("32-DOF", (16,), relexi_hit.HIT32, None),
+             ("non-cubic 2x3x4", (2,), relexi_hit.HIT24, (2, 3, 4))]
+    states = [(name, synthetic_state(gen, prefix, cfg, dev, elems), cfg)
+              for name, prefix, cfg, elems in cases]
     bank_gen = torch.Generator(device=dev).manual_seed(1)
     states.append(("24-DOF bank", initial.make_state_bank(
         bank_gen, relexi_hit.HIT24, 4), relexi_hit.HIT24))
     errs = {}
+    rhs_instances = rhs.fused_navier_stokes_rhs.instance_launches
     for name, u, cfg in states:
         ops, kw = rhs_kwargs(cfg, dev)
         cs_elem = 0.5 * torch.rand(u.shape[:-4], generator=gen)
@@ -494,14 +535,30 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             ud, csd = u.to(dtype).contiguous(), cs.to(dtype).contiguous()
             d_mat, w = ops["D"].to(dtype), ops["w"].to(dtype)
-            got = rhs.fused_navier_stokes_rhs(ud, csd, d_mat, w, **kw)
-            torch.cuda.synchronize()
             want = rhs.navier_stokes_rhs_plain(ud, csd, d_mat, w, **kw)
             tname = str(dtype).split(".")[-1]
-            err = parity(f"fused RHS {name} n={cfg.n_poly + 1} "
-                         f"B={u.shape[0]} {tname}", got, want, TOL[tname])
-            if name == "24-DOF" and dtype == torch.float32:
-                errs["fused_navier_stokes_rhs"] = err
+            if rhs.pick_instance(ud.shape, dtype) != "cluster":
+                raise AssertionError(f"fused RHS {name}: no cluster plan")
+            for kind in ("cluster", "two_pass"):
+                before = rhs_instances[kind]
+                got = rhs.fused_navier_stokes_rhs(ud, csd, d_mat, w,
+                                                  instance=kind, **kw)
+                torch.cuda.synchronize()
+                if rhs_instances[kind] != before + 1:
+                    raise AssertionError(f"fused RHS {name} did not launch "
+                                         f"its {kind} instance")
+                err = parity(f"fused RHS [{kind}] {name} n={cfg.n_poly + 1} "
+                             f"mesh {tuple(ud.shape[1:4])} B={u.shape[0]} "
+                             f"{tname}", got, want, TOL[tname])
+                if kind == "cluster":  # the picked instance, bit for bit
+                    again = rhs.fused_navier_stokes_rhs(ud, csd, d_mat, w,
+                                                        **kw)
+                    if not torch.equal(again, got):
+                        raise AssertionError(f"fused RHS {name} {tname}: "
+                                             f"two calls differ")
+                if name == "24-DOF" and u.shape[0] == 16 \
+                        and dtype == torch.float32:
+                    errs[f"fused_navier_stokes_rhs {kind}"] = err
 
     # the three channel kernels: the channel path's shapes first (16 envs)
     chan = envs.make("channel_wm").cfg
@@ -699,17 +756,51 @@ def main() -> int:
 
     # --- 4. time each kernel at its path's shape (16 envs, float32) ----------
     record = {}
-    _, u24, cfg24 = states[0]
-    ops, kw = rhs_kwargs(cfg24, dev)
-    cs24 = torch.full(u24.shape[:-1], 0.17, device=dev)
-    args = (u24, cs24, ops["D"], ops["w"])
-    print(f"time per call ({card}), fused RHS 24-DOF B=16 float32:")
-    ms, call_ms = time_calls({
-        "plain": lambda: rhs.navier_stokes_rhs_plain(*args, **kw),
-        "kernel": lambda: rhs.fused_navier_stokes_rhs(*args, **kw)})
-    record["fused_navier_stokes_rhs"] = dict(
-        ms=ms, call_ms=call_ms, library_ms=None, bound=rhs_bound_ms(*args))
+    # the fused RHS: the cluster instance (the path's), the two-pass one
+    # and the plain version at 24-DOF and 32-DOF, 16 envs, float32 and bf16
+    rhs_shapes = {"24-DOF": states[0], "32-DOF": states[3]}
+    for label, (_, u16, cfg) in rhs_shapes.items():
+        ops, kw = rhs_kwargs(cfg, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            tname = str(dtype).split(".")[-1]
+            ud = u16.to(dtype).contiguous()
+            args = (ud, torch.full(ud.shape[:-1], 0.17, device=dev,
+                                   dtype=dtype), ops["D"], ops["w"])
+            print(f"time per call ({card}), fused RHS {label} B=16 "
+                  f"{tname}:")
+            ms, call_ms = time_calls({
+                "plain": lambda: rhs.navier_stokes_rhs_plain(*args, **kw),
+                "kernel": lambda: rhs.fused_navier_stokes_rhs(
+                    *args, instance="cluster", **kw),
+                "kernel two_pass": lambda: rhs.fused_navier_stokes_rhs(
+                    *args, instance="two_pass", **kw)})
+            bound = rhs_bound_ms(*args)
+            clu, two = ms["kernel"], ms["kernel two_pass"]
+            print(f"  fused RHS {label} {tname} ({card}): cluster instance "
+                  f"{clu:.7f} ms, {'below' if clu < two else 'NOT below'} "
+                  f"the two-pass instance's {two:.7f} ms ({two / clu:.3f}x);"
+                  f" {100 * bound[0] / clu:.3f}% of the bound's speed "
+                  f"({bound[0]:.7f} ms by {bound[1]}); two-pass "
+                  f"{100 * bound[0] / two:.3f}%")
+            if label == "24-DOF" and dtype == torch.float32:
+                record["fused_navier_stokes_rhs"] = dict(
+                    ms=ms, call_ms=call_ms, library_ms=None, bound=bound)
+                rhs_args, rhs_kw = args, kw
     print("  library call: none, no single PyTorch call computes this RHS")
+    # what one RHS call launches on the card: the cluster kernel alone, once
+    # per call (50 calls in a window, as `device_ms` traces them: shorter
+    # windows showed no kernel; the profiler may drop a few launches)
+    for _ in range(3):
+        _, rows = traced(lambda: [rhs.fused_navier_stokes_rhs(
+            *rhs_args, **rhs_kw) for _ in range(50)])
+        if rows:
+            break
+    print(f"fused RHS 24-DOF call x 50, device kernels in its trace: "
+          f"{[(r[2], r[1]) for r in rows]}")
+    if len(rows) != 1 or "ns_rhs_cluster_kernel" not in rows[0][2] \
+            or not 1 <= rows[0][1] <= 50:
+        raise AssertionError("a fused RHS call did not launch the cluster "
+                             "kernel alone, once")
 
     # the channel kernels on the operands of the path: a bank state's
     # primitives, its gradient, its wall-face columns
@@ -875,6 +966,13 @@ def main() -> int:
     if counts != [expected, 0, 0, 0, 0, 0]:
         raise AssertionError(f"HIT path launches {counts}, expected "
                              f"[{expected}, 0, 0, 0, 0, 0]")
+    hit_instances = dict(rhs.fused_navier_stokes_rhs.instance_launches)
+    print(f"main path hit_les_24dof: fused RHS launches by instance "
+          f"{hit_instances}")
+    if hit_instances != {"cluster": expected, "two_pass": 0}:
+        raise AssertionError(f"HIT path RHS instances {hit_instances}, "
+                             f"expected all {expected} on the cluster "
+                             f"kernel")
     launches["fused_navier_stokes_rhs"] = counts[0]
 
     chan_iter = 1
@@ -1011,7 +1109,7 @@ def main() -> int:
                    card)
 
     # --- 6. records ----------------------------------------------------------
-    sources = {"fused_navier_stokes_rhs": ("ns_rhs.cu", "rhs.py:52"),
+    sources = {"fused_navier_stokes_rhs": ("ns_rhs_cluster.cu", "rhs.py:52"),
                "dg_derivative3": ("dg_derivative.cu", "dg_derivative.py:60"),
                "smagorinsky_nut": ("smagorinsky.cu", "smagorinsky.py:46"),
                "wall_model_tau": ("wall_model.cu", "wall_model.py:46"),
@@ -1021,6 +1119,15 @@ def main() -> int:
     # flash attention: the main path's bf16 tensor-core instance; the
     # float32 CUDA-core instance beside it
     errs["flash_attention"] = errs["flash_attention bfloat16"]
+    # the fused RHS: the main path's cluster instance; the two-pass instance
+    # (meshes beyond a cluster of 16 CTAs) beside it
+    errs["fused_navier_stokes_rhs"] = errs["fused_navier_stokes_rhs cluster"]
+    rec = record["fused_navier_stokes_rhs"]
+    rec["extra"] = {"two_pass_instance": {
+        "source": "src/repro_torch/kernels/csrc/ns_rhs.cu",
+        "max_abs_err": errs["fused_navier_stokes_rhs two_pass"],
+        "ms": rec["ms"]["kernel two_pass"],
+        "call_ms": rec["call_ms"]["kernel two_pass"]}}
     record["flash_attention"]["extra"] = {"float32_instance": {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "max_abs_err": errs["flash_attention float32"],

@@ -8,6 +8,7 @@ given the current flow state and the per-element Smagorinsky coefficients
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -199,10 +200,12 @@ def rk_substep(u: torch.Tensor, cs_nodes: torch.Tensor, cfg: HITConfig,
     return u
 
 
+@functools.cache
 def _rounded(x: float, dtype: torch.dtype) -> float:
     """`x` rounded to `dtype`, as a Python float.  The reference multiplies
     by constants already rounded to the carry's dtype (JAX's weak typing);
-    a Python float keeps a bf16 carry bf16 and needs no device copy."""
+    a Python float keeps a bf16 carry bf16 and needs no device copy.
+    Cached by (x, dtype): the RK loop asks for the same 11 per substep."""
     return torch.tensor(float(x), dtype=dtype).item()
 
 

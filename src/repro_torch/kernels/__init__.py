@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
-  rhs            fused DGSEM Navier-Stokes RHS (csrc/ns_rhs.cu), replacing
-                 the Pallas kernel `repro/kernels/rhs.py:fused_navier_stokes_rhs`
+  rhs            fused DGSEM Navier-Stokes RHS (csrc/ns_rhs_cluster.cu, one
+                 cluster launch per call; csrc/ns_rhs.cu, two passes, for
+                 meshes beyond a 16-CTA cluster), replacing the Pallas kernel
+                 `repro/kernels/rhs.py:fused_navier_stokes_rhs`
   dg_derivative  three-direction volume derivative (csrc/dg_derivative.cu),
                  replacing `repro/kernels/dg_derivative.py:dg_derivative3`
   smagorinsky    eddy viscosity (csrc/smagorinsky.cu), replacing

@@ -1,12 +1,17 @@
-"""One fused periodic-HIT Navier-Stokes RHS evaluation: the CUDA kernel
-(`csrc/ns_rhs.cu`) and its plain PyTorch version.
+"""One fused periodic-HIT Navier-Stokes RHS evaluation: the CUDA kernels
+(`csrc/ns_rhs_cluster.cu`, `csrc/ns_rhs.cu`) and their plain PyTorch
+version.
 
 `fused_navier_stokes_rhs` replaces the Pallas TPU kernel
 `repro/kernels/rhs.py:fused_navier_stokes_rhs`; `navier_stokes_rhs_plain` is
 the port of its oracle `repro/kernels/ref.py:navier_stokes_rhs_fused`.  The
 dispatch follows the tensor's device: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel or raises.  `fused_navier_stokes_rhs.launches`
-counts the calls that launched the kernel.
+CUDA tensor launches a kernel or raises.  Two instances, picked by shape
+(`pick_instance`): "cluster" (one launch, one thread-block cluster per mesh,
+faces through distributed shared memory) wherever `cluster_plan` finds a
+plan, "two_pass" (two launches joined by a global scratch) for meshes too
+large for a cluster of 16 CTAs.  `fused_navier_stokes_rhs.launches` counts
+the calls that launched a kernel, `.instance_launches` the same by instance.
 
 Pipeline (the JAX oracle's op order): primitive decode -> BR1 gradient of
 (v, T) -> Smagorinsky nu_t -> per direction, split-form Kennedy-Gruber volume
@@ -17,15 +22,26 @@ mixed-precision rollout).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ..cfd import dgsem, equations
 from . import _build
 
-_SOURCE = "ns_rhs.cu"
-N_MAX = 8  # the kernel holds at most 8^3 nodes of an element in one block
-_SCRATCH = 13  # gradient entries + nu_t per node in the kernel's scratch
+SOURCES = {"cluster": "ns_rhs_cluster.cu", "two_pass": "ns_rhs.cu"}
+N_MAX = 8  # the kernels hold at most 8^3 nodes of an element in one block
+_SCRATCH = 13  # gradient entries + nu_t per node in the two-pass scratch
+MAX_CTAS = 16  # CTAs of a cluster (a non-portable size above 8)
+MAX_THREADS = 256  # threads of a cluster-kernel CTA
+MAX_SMEM_BYTES = 232_448  # dynamic shared memory of one Hopper block
+# 4-byte values the cluster kernel keeps in shared memory per node
+# (primitives 7, viscous fluxes 12, RHS 5), per face node (lift jumps 10
+# per direction) and per element (its index and its 9 neighbour entries),
+# as `smem_floats` in csrc/ns_rhs_cluster.cu
+_NODE_FLOATS, _FACE_FLOATS, _ELEM_INTS = 7 + 12 + 5, 3 * 10, 10
+_MAX_WARPS = MAX_THREADS // 32
 
 
 def plain_gradients(q_prim: torch.Tensor, cs_nodes: torch.Tensor,
@@ -131,6 +147,114 @@ def navier_stokes_rhs_plain(u: torch.Tensor, cs_nodes: torch.Tensor,
 
 _ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6
              + (ctypes.c_float,) * 9 + (ctypes.c_void_p,))
+_ARGTYPES_CLUSTER = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 10
+                     + (ctypes.c_float,) * 9 + (ctypes.c_void_p,))
+
+
+class ClusterPlan(NamedTuple):
+    """How the cluster kernel lays out one mesh: a grid of px x py x pz CTAs,
+    each holding a (Kx/px, Ky/py, Kz/pz) block of elements."""
+    px: int
+    py: int
+    pz: int
+    threads: int
+    smem_bytes: int
+
+    @property
+    def ctas(self) -> int:
+        return self.px * self.py * self.pz
+
+
+def cluster_smem_bytes(n: int, elements: int) -> int:
+    """Dynamic shared memory of one CTA of the cluster kernel holding
+    `elements` elements of n^3 nodes (`smem_floats` in the source)."""
+    floats = (_NODE_FLOATS * elements * n**3 + _FACE_FLOATS * elements * n * n
+              + n * n + 4 * _MAX_WARPS + 8 + _ELEM_INTS * elements)
+    return 4 * floats
+
+
+def _divisors(k: int) -> list[int]:
+    return [p for p in range(1, k + 1) if k % p == 0]
+
+
+@functools.cache
+def cluster_plan(kx: int, ky: int, kz: int, n: int,
+                 dtype: torch.dtype) -> ClusterPlan | None:
+    """The cluster kernel's layout of a Kx x Ky x Kz mesh of n^3-node
+    elements, or None where no cluster of at most 16 CTAs holds the mesh in
+    shared memory.  The most CTAs (the kernel is latency-bound: more SMs,
+    smaller blocks that share an SM), each p dividing its K; among those the
+    most compact block (least surface), then the smallest (px, py, pz).  One
+    thread per node of the block, rounded up to whole warps, at most 256.
+    The layout does not depend on `dtype` (float32 inside)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused RHS kernel takes float32 or bfloat16, "
+                        f"got {dtype}")
+    if not 2 <= n <= N_MAX:
+        return None
+    best = None
+    for px in _divisors(kx):
+        for py in _divisors(ky):
+            for pz in _divisors(kz):
+                if px * py * pz > MAX_CTAS:
+                    continue
+                sx, sy, sz = kx // px, ky // py, kz // pz
+                smem = cluster_smem_bytes(n, sx * sy * sz)
+                if smem > MAX_SMEM_BYTES:
+                    continue
+                key = (-px * py * pz, sx * sy + sy * sz + sx * sz, px, py, pz)
+                if best is None or key < best[0]:
+                    nodes = sx * sy * sz * n**3
+                    threads = min(MAX_THREADS, 32 * -(-nodes // 32))
+                    best = (key, ClusterPlan(px, py, pz, threads, smem))
+    return None if best is None else best[1]
+
+
+def pick_instance(shape: tuple, dtype: torch.dtype) -> str:
+    """The kernel that takes a CUDA tensor u of `shape` and `dtype`:
+    "cluster" where `cluster_plan` finds a plan, else "two_pass"."""
+    kx, ky, kz, n = shape[-7], shape[-6], shape[-5], shape[-2]
+    return "cluster" if cluster_plan(kx, ky, kz, n, dtype) else "two_pass"
+
+
+def _resolve_instance(shape: tuple, dtype: torch.dtype,
+                      instance: str | None) -> str:
+    """`instance` as asked (None: by shape); raises on an unknown name and on
+    "cluster" for a mesh that has no cluster plan."""
+    if instance is None:
+        return pick_instance(shape, dtype)
+    if instance not in SOURCES:
+        raise ValueError(f"no fused RHS instance {instance!r}; have "
+                         f"{sorted(SOURCES)}")
+    if instance == "cluster" and pick_instance(shape, dtype) != "cluster":
+        raise ValueError(f"no cluster plan for a mesh of shape "
+                         f"{tuple(shape)}: it needs more than {MAX_CTAS} "
+                         f"CTAs of {MAX_SMEM_BYTES} bytes")
+    return instance
+
+
+@functools.cache
+def max_active_clusters(kx: int, ky: int, kz: int, n: int,
+                        dtype: torch.dtype) -> int:
+    """How many clusters of this mesh's plan the current CUDA device holds
+    at once (cudaOccupancyMaxActiveClusters)."""
+    plan = cluster_plan(kx, ky, kz, n, dtype)
+    if plan is None:
+        raise ValueError(f"no cluster plan for {kx}x{ky}x{kz} elements of "
+                         f"n={n}")
+    lib = _build.load(SOURCES["cluster"])
+    fn = lib.ns_rhs_cluster_max_active_clusters
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    count = ctypes.c_int(0)
+    rc = fn(kx, ky, kz, n, plan.px, plan.py, plan.pz, plan.threads,
+            int(dtype == torch.bfloat16), ctypes.byref(count))
+    if rc != 0:
+        err = lib.ns_rhs_cluster_error_string
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
+                           f"{err(rc).decode()} ({rc})")
+    return count.value
 
 
 def _check_inputs(u, cs_nodes, d_matrix, w) -> int:
@@ -164,10 +288,13 @@ def fused_navier_stokes_rhs(u: torch.Tensor, cs_nodes: torch.Tensor,
                             inv_w_end: tuple[float, float], jac: float,
                             delta: float, mu: float, prandtl: float,
                             prandtl_turb: float, forcing_a0: float,
-                            k_tke: float) -> torch.Tensor:
+                            k_tke: float,
+                            instance: str | None = None) -> torch.Tensor:
     """Fused RHS for a batch of HIT meshes; same contract as the plain
-    version.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel (two passes, see csrc/ns_rhs.cu) or raise."""
+    version.  CPU tensors take the plain version; CUDA tensors launch a
+    kernel or raise: the instance `pick_instance` gives for u's shape, or
+    the one named by `instance` ("cluster" or "two_pass", for comparing
+    the two)."""
     kw = dict(inv_w_end=inv_w_end, jac=jac, delta=delta, mu=mu,
               prandtl=prandtl, prandtl_turb=prandtl_turb,
               forcing_a0=forcing_a0, k_tke=k_tke)
@@ -176,6 +303,7 @@ def fused_navier_stokes_rhs(u: torch.Tensor, cs_nodes: torch.Tensor,
     if u.device.type != "cuda":
         raise ValueError(f"no fused RHS for device {u.device}")
     n = _check_inputs(u, cs_nodes, d_matrix, w)
+    kind = _resolve_instance(u.shape, u.dtype, instance)
     kx, ky, kz = u.shape[-7:-4]
     batch = u.numel() // (kx * ky * kz * n**3 * 5)
     out = torch.empty_like(u)
@@ -183,21 +311,35 @@ def fused_navier_stokes_rhs(u: torch.Tensor, cs_nodes: torch.Tensor,
         return out
     d32 = d_matrix.to(torch.float32).contiguous()
     w32 = w.to(torch.float32).contiguous()
-    n_blocks = batch * kx * ky * kz
-    scratch = torch.empty((n_blocks, _SCRATCH, n**3), dtype=torch.float32,
-                          device=u.device)
-    partials = torch.empty((n_blocks, 4), dtype=torch.float32,
-                           device=u.device)
+    scalars = (float(inv_w_end[0]), float(inv_w_end[1]), float(jac),
+               float(delta), float(mu), float(prandtl), float(prandtl_turb),
+               float(forcing_a0), float(k_tke))
+    is_bf16 = int(u.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    _build.launcher(_SOURCE, "ns_rhs", _ARGTYPES)(
-        u.data_ptr(), cs_nodes.data_ptr(), d32.data_ptr(), w32.data_ptr(),
-        scratch.data_ptr(), partials.data_ptr(), out.data_ptr(),
-        batch, kx, ky, kz, n, int(u.dtype == torch.bfloat16),
-        float(inv_w_end[0]), float(inv_w_end[1]), float(jac), float(delta),
-        float(mu), float(prandtl), float(prandtl_turb), float(forcing_a0),
-        float(k_tke), stream)
+    if kind == "cluster":
+        plan = cluster_plan(kx, ky, kz, n, u.dtype)
+        if max_active_clusters(kx, ky, kz, n, u.dtype) == 0:
+            raise RuntimeError(f"the device cannot hold one cluster of "
+                               f"{plan.ctas} CTAs with {plan.smem_bytes} "
+                               f"bytes of shared memory each ({plan})")
+        _build.launcher(SOURCES[kind], "ns_rhs_cluster", _ARGTYPES_CLUSTER)(
+            u.data_ptr(), cs_nodes.data_ptr(), d32.data_ptr(),
+            w32.data_ptr(), out.data_ptr(), batch, kx, ky, kz, n, plan.px,
+            plan.py, plan.pz, plan.threads, is_bf16, *scalars, stream)
+    else:
+        n_blocks = batch * kx * ky * kz
+        scratch = torch.empty((n_blocks, _SCRATCH, n**3),
+                              dtype=torch.float32, device=u.device)
+        partials = torch.empty((n_blocks, 4), dtype=torch.float32,
+                               device=u.device)
+        _build.launcher(SOURCES[kind], "ns_rhs", _ARGTYPES)(
+            u.data_ptr(), cs_nodes.data_ptr(), d32.data_ptr(),
+            w32.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
+            out.data_ptr(), batch, kx, ky, kz, n, is_bf16, *scalars, stream)
     fused_navier_stokes_rhs.launches += 1
+    fused_navier_stokes_rhs.instance_launches[kind] += 1
     return out
 
 
 fused_navier_stokes_rhs.launches = 0
+fused_navier_stokes_rhs.instance_launches = dict.fromkeys(SOURCES, 0)

@@ -197,3 +197,188 @@ def test_cuda_kernel_matches_plain(batch, n_poly, n_elem, dtype):
                                         **_kwargs(cfg))
     tol = {"float32": 1e-4, "bfloat16": 4e-2}[dtype]
     assert _rel_err(got.float().cpu(), want.float().cpu()) <= tol
+
+
+def _mesh_inputs(batch, mesh, n, seed=3):
+    """`_inputs` on a Kx x Ky x Kz mesh (not necessarily cubic)."""
+    rng = np.random.default_rng(seed)
+    shape = (batch,) + tuple(mesh) + (n, n, n)
+    rho = 1.0 + 0.1 * rng.uniform(size=shape + (1,))
+    vel = 0.3 * rng.standard_normal(shape + (3,))
+    p = 7.0 + 0.5 * rng.uniform(size=shape + (1,))
+    e = p / 0.4 + 0.5 * rho * np.sum(vel**2, -1, keepdims=True)
+    u = np.concatenate([rho, rho * vel, e], -1).astype(np.float32)
+    cs_elem = rng.uniform(0.0, 0.5, size=shape[:4]).astype(np.float32)
+    cs = np.broadcast_to(cs_elem[..., None, None, None], shape).copy()
+    return u, cs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_fused_rhs_matches_jax_oracle_non_cubic_mesh(dtype):
+    """A 2 x 3 x 4 mesh (the cluster kernel's non-cubic parity shape at a
+    reduced order): the plain version against the JAX oracle."""
+    cfg = JaxHITConfig(n_poly=2, n_elem=2, use_kernels=False)
+    kw = _kwargs(cfg)
+    u, cs = _mesh_inputs(2, (2, 3, 4), 3)
+    jops = cfg.operators()
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    ju, jcs = jnp.asarray(u).astype(jdt), jnp.asarray(cs).astype(jdt)
+    oracle = jax.jit(functools.partial(ref.navier_stokes_rhs_fused, **kw))
+    want = oracle(ju, jcs, jops["D"].astype(jdt), jops["w"].astype(jdt))
+    tu = torch.from_numpy(np.array(ju.astype(jnp.float32))).to(tdt)
+    tcs = torch.from_numpy(np.array(jcs.astype(jnp.float32))).to(tdt)
+    ops = HITConfig(n_poly=2, n_elem=2).operators()
+    got = trhs.navier_stokes_rhs_plain(tu, tcs, ops["D"].to(tdt),
+                                       ops["w"].to(tdt), **kw)
+    assert got.shape == u.shape and got.dtype == tdt
+    assert _rel_err(got.float(), want.astype(jnp.float32)) <= TOL[dtype]
+
+
+# (Kx, Ky, Kz, n) -> the plan `cluster_plan` must give: 24-DOF, 32-DOF,
+# hit_les_reduced, n=3 K=3 and a non-cubic mesh at the 24-DOF order
+PLANS = {
+    (4, 4, 4, 6): (2, 2, 4, 256),
+    (4, 4, 4, 8): (2, 2, 4, 256),
+    (2, 2, 2, 4): (2, 2, 2, 64),
+    (3, 3, 3, 3): (1, 3, 3, 96),
+    (2, 3, 4, 6): (1, 3, 4, 256),
+}
+
+
+@pytest.mark.parametrize("mesh", list(PLANS), ids=str)
+def test_cluster_plan(mesh):
+    """Each p divides its K, at most 16 CTAs, shared memory within a
+    Hopper block's 232,448 bytes and equal to what the kernel carves; the
+    most CTAs that divide the mesh; one thread per node in whole warps, up
+    to 256."""
+    kx, ky, kz, n = mesh
+    plan = trhs.cluster_plan(kx, ky, kz, n, torch.float32)
+    assert (plan.px, plan.py, plan.pz, plan.threads) == PLANS[mesh]
+    assert kx % plan.px == ky % plan.py == kz % plan.pz == 0
+    assert plan.ctas <= 16
+    ne = (kx // plan.px) * (ky // plan.py) * (kz // plan.pz)
+    assert plan.smem_bytes == trhs.cluster_smem_bytes(n, ne) <= 232_448
+    # primitives 7, viscous fluxes 12, RHS 5 per node; jumps 30 per face
+    # node; D, the warp partials, the CTA's partials and means; 10 ints of
+    # neighbour tables per element
+    assert plan.smem_bytes == 4 * (24 * ne * n**3 + 30 * ne * n * n + n * n
+                                   + 32 + 8 + 10 * ne)
+    assert plan.threads % 32 == 0
+    assert plan.threads == min(256, 32 * -(-ne * n**3 // 32))
+    # no grid of more CTAs divides the mesh
+    assert not any(
+        px * py * pz > plan.ctas
+        for px in range(1, kx + 1) for py in range(1, ky + 1)
+        for pz in range(1, kz + 1)
+        if kx % px == ky % py == kz % pz == 0 and px * py * pz <= 16)
+    assert trhs.cluster_plan(kx, ky, kz, n, torch.bfloat16) == plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("mesh", list(PLANS) + [(8, 8, 8, 8), (5, 5, 5, 8)],
+                         ids=str)
+def test_instance_by_shape(mesh, dtype):
+    """The cluster instance wherever a plan exists; the two-pass kernel for
+    meshes that 16 CTAs cannot hold."""
+    kx, ky, kz, n = mesh
+    shape = (16, kx, ky, kz, n, n, n, 5)
+    want = "cluster" if mesh in PLANS else "two_pass"
+    assert trhs.pick_instance(shape, dtype) == want
+    assert (trhs.cluster_plan(kx, ky, kz, n, dtype) is None) == (
+        want == "two_pass")
+    assert trhs._resolve_instance(shape, dtype, None) == want
+    assert trhs._resolve_instance(shape, dtype, "two_pass") == "two_pass"
+
+
+def test_cluster_instance_checks_raise():
+    """What the cluster instance cannot take is refused before a launch."""
+    big = (1, 8, 8, 8, 8, 8, 8, 5)
+    with pytest.raises(ValueError, match="no cluster plan"):
+        trhs._resolve_instance(big, torch.float32, "cluster")
+    with pytest.raises(ValueError, match="no fused RHS instance"):
+        trhs._resolve_instance((1, 4, 4, 4, 6, 6, 6, 5), torch.float32,
+                               "one_pass")
+    with pytest.raises(TypeError):
+        trhs.cluster_plan(4, 4, 4, 6, torch.float16)
+    with pytest.raises(ValueError, match="no cluster plan"):
+        trhs.max_active_clusters(8, 8, 8, 8, torch.float32)
+    assert trhs.cluster_plan(4, 4, 4, 9, torch.float32) is None
+    assert set(trhs.fused_navier_stokes_rhs.instance_launches) == {
+        "cluster", "two_pass"}
+    u, cs = _inputs((1,), 2, 2)
+    ops = HITConfig(n_poly=2, n_elem=2).operators()
+    with pytest.raises(ValueError, match="no fused RHS"):
+        trhs.fused_navier_stokes_rhs(
+            torch.from_numpy(u).to("meta"), torch.from_numpy(cs).to("meta"),
+            ops["D"], ops["w"], instance="cluster",
+            **_kwargs(HITConfig(n_poly=2, n_elem=2)))
+
+
+def test_rounded_rk_constants_are_cached_and_exact():
+    """`_rounded` gives the dtype's rounding of each RK constant, bit for
+    bit, and computes each (x, dtype) once."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for x in list(tsolver._RK_A) + list(tsolver._RK_B) + [1e-3]:
+            want = torch.tensor(float(x), dtype=dtype).item()
+            assert tsolver._rounded(x, dtype) == want
+            assert tsolver._rounded(float(x), dtype) == want
+    hits = tsolver._rounded.cache_info().hits
+    tsolver._rounded(tsolver._RK_B[2], torch.bfloat16)
+    assert tsolver._rounded.cache_info().hits == hits + 1
+
+
+# (batch, (Kx, Ky, Kz), n): 24-DOF and 32-DOF at 16 envs, 32-DOF at 4,
+# n=3 K=3, one 24-DOF mesh, the non-cubic mesh
+CUDA_CASES = [(16, (4, 4, 4), 6), (16, (4, 4, 4), 8), (4, (4, 4, 4), 8),
+              (3, (3, 3, 3), 3), (1, (4, 4, 4), 6), (2, (2, 3, 4), 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", ["cluster", "two_pass"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,mesh,n", CUDA_CASES, ids=str)
+def test_cuda_rhs_instances_match_plain(batch, mesh, n, dtype, instance):
+    """Each instance vs the plain version on the card (float32 1e-4,
+    bfloat16 4e-2 of max |plain|), counted under its own name; the cluster
+    instance is the one picked by shape, and gives the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    cfg = HITConfig(n_poly=n - 1, n_elem=mesh[0])
+    u, cs = _mesh_inputs(batch, mesh, n)
+    tdt = getattr(torch, dtype)
+    tu = torch.from_numpy(u).to("cuda", tdt)
+    tcs = torch.from_numpy(cs).to("cuda", tdt)
+    ops = cfg.operators("cuda")
+    assert trhs.pick_instance(tu.shape, tdt) == "cluster"
+    fn = trhs.fused_navier_stokes_rhs
+    before = dict(fn.instance_launches)
+    got = fn(tu, tcs, ops["D"], ops["w"], instance=instance, **_kwargs(cfg))
+    torch.cuda.synchronize()
+    after = dict(before, **{instance: before[instance] + 1})
+    assert fn.instance_launches == after
+    want = trhs.navier_stokes_rhs_plain(tu, tcs, ops["D"], ops["w"],
+                                        **_kwargs(cfg))
+    tol = {"float32": 1e-4, "bfloat16": 4e-2}[dtype]
+    assert _rel_err(got.float().cpu(), want.float().cpu()) <= tol
+    if instance == "cluster":
+        again = fn(tu, tcs, ops["D"], ops["w"], **_kwargs(cfg))
+        assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", list(PLANS), ids=str)
+def test_cuda_cluster_plan_fits_the_device(mesh):
+    """The kernel carves the shared memory the plan reckons, and the card
+    holds at least one cluster of each plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.kernels import _build
+
+    kx, ky, kz, n = mesh
+    plan = trhs.cluster_plan(kx, ky, kz, n, torch.float32)
+    ne = (kx // plan.px) * (ky // plan.py) * (kz // plan.pz)
+    lib = _build.load(trhs.SOURCES["cluster"])
+    assert lib.ns_rhs_cluster_smem_bytes(n, ne) == plan.smem_bytes
+    for dtype in (torch.float32, torch.bfloat16):
+        assert trhs.max_active_clusters(kx, ky, kz, n, dtype) >= 1

@@ -5,23 +5,29 @@
 
 In order, and any failure exits non-zero:
   1. prints the card's name and power limit, the torch and CUDA versions, and
-     the TF32 flags (both set False for the whole run, so that float32
-     convolutions and matmuls are full float32);
+     the TF32 flags: matmuls full float32 (torch's default, set for the
+     run); cuDNN's flag left at torch's default, since the package runs the
+     policy's convolutions in its own setting (`repro_torch.CONV_ALLOW_TF32`,
+     False: float32), which is printed, so that the run measures what the
+     entry point runs;
   2. builds every CUDA kernel of the three paths from the sources in the
-     checkout (one nvcc per source, all eight started together: the fused
+     checkout (one nvcc per source, all nine started together: the fused
      RHS has a cluster and a two-pass source, flash attention a bf16
-     tensor-core and a float32 CUDA-core one) and prints each build's time
-     and nvcc's register report (a spill in the RHS cluster kernel fails),
-     then the RHS cluster plans of 24-DOF and 32-DOF and how many of their
-     clusters the card holds at once;
+     tensor-core and a float32 CUDA-core one, the linear scan a chunked and
+     a step one) and prints each build's time and nvcc's register report (a
+     spill in the RHS cluster kernel fails), then the RHS cluster plans of
+     24-DOF and 32-DOF and how many of their clusters the card holds at
+     once, and the chunked scan's plan, blocks per SM and waves at hymba's
+     prefills;
   3. holds each kernel to its plain PyTorch version on the card, in float32
      and bfloat16: the fused RHS, both instances, on synthetic and real HIT
      states (24-DOF, 32-DOF, n=3 K=3, a non-cubic mesh), the cluster
      instance also bit for bit against itself; the three
      channel kernels at the channel path's shapes and beyond; flash
      attention (each instance, with the model's transposed views, D up to
-     256, ragged S) and the linear scan at hymba-1.5b's shapes and at the
-     other corners of their contracts; then one RL interval of each CFD
+     256, ragged S) and the linear scan (each instance) at hymba-1.5b's
+     shapes and at the other corners of their contracts; then one RL
+     interval of each CFD
      scenario on the kernel path against the staged plain path, and
      hymba-1.5b at full width in float32 (prefill of 2 x 1,100 tokens and 4
      teacher-forced decode steps) and in bf16 (the prefill) on the kernel
@@ -38,22 +44,26 @@ In order, and any failure exits non-zero:
      for flash
      attention at both hymba shapes also the float32 CUDA-core instance,
      and the device kernels in the trace of five bf16 calls (the
-     tensor-core kernel alone);
+     tensor-core kernel alone); the linear scan's two instances side by
+     side at hymba's prefill and the step instance at decode; the wall
+     model at both walls' P = 4,608 beside one wall's 2,304;
   5. drives the three paths through their entry points, each with every
      launch count set to 0 just before it and read just after:
      `hit_les_24dof` through `repro_torch.launch.rl_train` (2 PPO iterations
      + 1 evaluation, 16 envs) must launch the fused RHS exactly 3 episodes x
      50 steps x 13 substeps x 5 stages times, all on its cluster instance;
      `channel_wm` (1 iteration + 1
-     evaluation, 16 envs) must launch dg_derivative3 and smagorinsky_nut
-     exactly 2 x 20 x 26 x 5 times and wall_model_tau twice that (one call
-     per wall); hymba-1.5b serving (bf16 weights from a seed,
+     evaluation, 16 envs) must launch dg_derivative3, smagorinsky_nut and
+     wall_model_tau exactly 2 x 20 x 26 x 5 times each (the wall model once
+     per RHS for both walls); hymba-1.5b serving (bf16 weights from a seed,
      `lm.greedy_generate` of 32 new tokens for 4 prompts of 2,048 Zipf
      tokens, then for 4 of 700) must launch flash_attention 32 times, all on
      its tensor-core instance, and linear_scan 1,024 times per batch (32
-     layers x (1 prefill + 31 decode steps)); then profiles one RL step of each CFD path, one HIT PPO epoch,
-     one hymba prefill and one decode step (torch.profiler) to show where
-     the time goes;
+     layers x (1 prefill + 31 decode steps)), the 32 prefill calls on its
+     chunked instance and the 992 decode calls on its step instance; then
+     profiles one RL step of each CFD path (the channel's launches per
+     RHS), one HIT PPO epoch, one hymba prefill and one decode step
+     (torch.profiler) to show where the time goes;
   6. prints one JSON line per the kernels' record, then the last line
      `{"ok": true, "device": {...}}`.
 
@@ -63,6 +73,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -260,17 +271,19 @@ OWN_KERNELS = ("ns_rhs_cluster_kernel", "grad_pass", "div_pass",
                "dg_derivative3_kernel",
                "smagorinsky_kernel", "wall_model_kernel",
                "flash_attention_kernel", "flash_attention_tc_kernel",
-               "linear_scan_kernel")
+               "linear_scan_kernel", "chunk_state_kernel",
+               "chunk_carry_kernel", "chunk_output_kernel")
 
 
-def profile_window(label: str, fn, card: str) -> None:
+def profile_window(label: str, fn, card: str) -> int | None:
     """Device busy time, the top kernels and the port's own kernels of one
-    call of `fn`; "not measured" where the trace shows no device time."""
+    call of `fn`; "not measured" where the trace shows no device time.
+    Returns the trace's kernel launches (None if it shows none)."""
     wall_ms, rows = traced(fn)
     if not rows:
         print(f"profile {label}: wall {wall_ms:.3f} ms; device time not "
               f"measured (the trace shows none)")
-        return
+        return None
     busy_ms = sum(r[0] for r in rows) / 1e3
     print(f"profile {label} ({card}): wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
@@ -285,6 +298,7 @@ def profile_window(label: str, fn, card: str) -> None:
             print(f"  port kernel {own}: {count} launches, {dev_ms:.3f} ms "
                   f"({dev_ms / count:.7f} ms each, "
                   f"{100 * dev_ms / busy_ms:.2f}% of device busy)")
+    return sum(r[1] for r in rows)
 
 
 def device_ms(fn, calls: int) -> float:
@@ -436,6 +450,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, src)
+    import repro_torch
     from repro_torch import configs as lm_configs
     from repro_torch import envs
     from repro_torch.cfd import channel, equations, gll, initial
@@ -460,16 +475,18 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"TF32 off for the whole run: matmul.allow_tf32="
-          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
-          f"{torch.backends.cudnn.allow_tf32}")
+    print(f"TF32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"for the whole run; cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32} (torch's default, not set "
+          f"here); the policy's convolutions run with the package's "
+          f"repro_torch.CONV_ALLOW_TF32={repro_torch.CONV_ALLOW_TF32} "
+          f"(conv_precision, around the rollout and each PPO epoch)")
 
     # --- 2. build: one nvcc per source, all started together -----------------
     sources = (*rhs.SOURCES.values(), dg_derivative._SOURCE,
                smagorinsky._SOURCE,
                wall_model._SOURCE, *flash_attention.SOURCES.values(),
-               linear_scan._SOURCE)
+               *linear_scan.SOURCES.values())
 
     def build(source: str) -> float:
         t0 = time.perf_counter()
@@ -513,6 +530,26 @@ def main() -> int:
     print("  flash_attention_tc_kernel dynamic shared memory per block: "
           + ", ".join(f"D<={dp} {smem(dp)} bytes"
                       for dp in flash_attention.TC_TILES))
+    per_sm = _build.load(linear_scan.SOURCES["chunked"]) \
+        .linear_scan_chunked_blocks_per_sm
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, (rows, t_len, dk, dv) in (
+            ("hymba prefill 4 x 2048", (100, 2048, 16, 64)),
+            ("hymba prefill 4 x 700", (100, 700, 16, 64)),
+            ("RWKV6 64 x 64 state, 64 x 512, float32", (64, 512, 64, 64))):
+        plan = linear_scan.chunked_plan(dk, dv)
+        blocks = rows * -(-t_len // plan.chunk) * -(-dv // plan.cols)
+        dts = (1, 0, 1, 0) if dk == 16 else (0, 0, 0, 0)  # q, k, v, w bf16
+        occ = {phase: per_sm(dk, dv, *dts, i) for i, phase in
+               enumerate(("A (chunk states)", "C (outputs)"))}
+        if min(occ.values()) < 1:
+            raise AssertionError(f"chunked scan {label}: the card holds no "
+                                 f"block ({occ})")
+        waves = {ph: round(blocks / (n * n_sm), 3) for ph, n in occ.items()}
+        print(f"linear_scan chunked plan {label} (dk {dk}, dv {dv}): {plan},"
+              f" {plan.groups * plan.cols} threads, {blocks} blocks per "
+              f"phase; blocks per SM {occ}; waves on {n_sm} SMs {waves} "
+              f"({card})")
 
     # --- 3. kernel vs plain on the card --------------------------------------
     gen = torch.Generator().manual_seed(0)
@@ -566,6 +603,7 @@ def main() -> int:
     n = chan.n
     p_nodes = 16 * kx * ky * kz * n**3           # 36,864 nodes
     p_wall = 16 * kx * kz * n * n                # 2,304 wall-face columns
+    # of one wall; the path batches both walls, 4,608
     for dtype in (torch.float32, torch.bfloat16):
         tname = str(dtype).split(".")[-1]
         for label, b, nn, c in (("channel", 16 * kx * ky * kz, n, 4),
@@ -592,21 +630,25 @@ def main() -> int:
                      TOL_ELEMENTWISE[tname])
         if dtype == torch.float32:
             errs["smagorinsky_nut"] = err
-        # matching-point speeds across the viscous sublayer and the log layer
-        up = torch.logspace(-3, math.log10(1.6), p_wall).to(dev, dtype)
-        rho = (0.9 + 0.2 * torch.rand((p_wall,), generator=gen)).to(dev, dtype)
-        for cfg_name in ("channel_wm", "channel_wm_hre"):
-            c = envs.make(cfg_name).cfg
-            kw = dict(y_m=0.5 * c.dxs[1], nu=c.nu, kappa=c.kappa,
-                      iters=c.wm_iters)
-            got = wall_model.wall_model_tau(up, rho, **kw)
-            torch.cuda.synchronize()
-            err = parity(f"wall_model_tau P={p_wall} iters={c.wm_iters} "
-                         f"nu={c.nu} {tname}", got,
-                         wall_model.wall_model_tau_plain(up, rho, **kw),
-                         TOL_ELEMENTWISE[tname])
-            if cfg_name == "channel_wm" and dtype == torch.float32:
-                errs["wall_model_tau"] = err
+        # matching-point speeds across the viscous sublayer and the log
+        # layer: one wall, and both walls in one batch as the path calls it
+        for p_pts in (p_wall, 2 * p_wall):
+            up = torch.logspace(-3, math.log10(1.6), p_pts).to(dev, dtype)
+            rho = (0.9 + 0.2 * torch.rand((p_pts,), generator=gen)).to(
+                dev, dtype)
+            for cfg_name in ("channel_wm", "channel_wm_hre"):
+                c = envs.make(cfg_name).cfg
+                kw = dict(y_m=0.5 * c.dxs[1], nu=c.nu, kappa=c.kappa,
+                          iters=c.wm_iters)
+                got = wall_model.wall_model_tau(up, rho, **kw)
+                torch.cuda.synchronize()
+                err = parity(f"wall_model_tau P={p_pts} iters={c.wm_iters} "
+                             f"nu={c.nu} {tname}", got,
+                             wall_model.wall_model_tau_plain(up, rho, **kw),
+                             TOL_ELEMENTWISE[tname])
+                if cfg_name == "channel_wm" and p_pts == 2 * p_wall \
+                        and dtype == torch.float32:
+                    errs["wall_model_tau"] = err
 
     # flash attention: hymba's prefill (window 1024 on 28 layers, full on 4)
     # and the contract's other corners; bf16 runs the tensor-core instance,
@@ -653,13 +695,21 @@ def main() -> int:
                          TOL_FLASH[tname])
             if label == "hymba SWA":
                 errs[f"flash_attention {tname}"] = err
-        # linear scan: hymba's GLA read at prefill and decode, RWKV6's read
+        # linear scan, each instance: hymba's GLA read at prefill (2,048
+        # and 700 tokens) and decode, RWKV6's read, ragged T, one chunk and
+        # a chunk plus one step
+        scan_instances = linear_scan.linear_scan.instance_launches
         for label, (b, t, dk, dv), gla, with_u, with_s0 in (
                 ("hymba GLA", (50, 2048, 16, 64), True, False, False),
+                ("hymba GLA T=700 with s0", (50, 700, 16, 64), True, False,
+                 True),
                 ("hymba decode T=1 with s0", (50, 1, 16, 64), True, False,
                  True),
                 ("RWKV6 read with u", (64, 512, 64, 64), False, True, True),
-                ("ragged T=1000", (50, 1000, 16, 64), True, False, True)):
+                ("ragged T=1000", (50, 1000, 16, 64), True, False, True),
+                ("one chunk T=64", (50, 64, 16, 64), True, False, True),
+                ("a chunk plus one step T=65", (50, 65, 16, 64), True, False,
+                 True)):
             q = torch.randn((b, t, dk), generator=gen).to(dev, dtype)
             k = (0.25 * torch.randn((b, t, dk), generator=gen)).to(dev)
             v = torch.randn((b, t, dv), generator=gen).to(dev, dtype)
@@ -667,16 +717,24 @@ def main() -> int:
             u = torch.randn((dk,), generator=gen).to(dev) if with_u else None
             s0 = (torch.randn((b, dk, dv), generator=gen).to(dev)
                   if with_s0 else None)
-            o, s_fin = linear_scan.linear_scan(q, k, v, w, u, s0,
-                                               decay_before_read=gla)
-            torch.cuda.synchronize()
             o_p, s_p = linear_scan.linear_scan_chunked(
                 q, k, v, w, u, s0, decay_before_read=gla)
-            name = f"linear_scan {label} ({b}, {t}, {dk}, {dv}) {tname}"
-            err = max(parity(f"{name} o", o, o_p.to(dtype), TOL[tname]),
-                      parity(f"{name} S_final", s_fin, s_p, TOL["float32"]))
-            if label == "hymba GLA" and dtype == torch.float32:
-                errs["linear_scan"] = err
+            for kind in ("chunked", "step"):
+                before = dict(scan_instances)
+                o, s_fin = linear_scan.linear_scan(q, k, v, w, u, s0,
+                                                   decay_before_read=gla,
+                                                   instance=kind)
+                torch.cuda.synchronize()
+                if scan_instances != dict(before, **{kind: before[kind] + 1}):
+                    raise AssertionError(f"linear_scan {label} did not "
+                                         f"launch its {kind} instance once")
+                name = (f"linear_scan [{kind}] {label} ({b}, {t}, {dk}, "
+                        f"{dv}) {tname}")
+                err = max(parity(f"{name} o", o, o_p.to(dtype), TOL[tname]),
+                          parity(f"{name} S_final", s_fin, s_p,
+                                 TOL["float32"]))
+                if label == "hymba GLA" and dtype == torch.float32:
+                    errs[f"linear_scan {kind}"] = err
 
     # one RL interval of each scenario: the kernel path vs the staged plain
     # assembly, both on the card
@@ -843,21 +901,31 @@ def main() -> int:
         bound=bound_ms("smagorinsky_nut", nbytes(grad, cs, nu_t),
                        smagorinsky_operations(p_nodes)))
 
-    rho_m, ux_m, uz_m = channel._matching_state(chan_bank, chan, chan_ops, 0)
-    u_par = torch.sqrt(ux_m**2 + uz_m**2 + 1e-12).contiguous()
-    rho_m = rho_m.contiguous()
+    # both walls' matching points in one batch, as `wall_fluxes` hands them
+    # (P = 2 x 2,304), and the bottom wall's alone (the former call per wall)
+    rho_m, ux_m, uz_m = channel._matching_state(chan_bank, chan, chan_ops)
+    u_par = torch.sqrt(ux_m**2 + uz_m**2 + 1e-12)
+    u_one, rho_one = u_par[0].contiguous(), rho_m[0].contiguous()
     wkw = dict(y_m=0.5 * chan.dxs[1], nu=chan.nu, kappa=chan.kappa,
                iters=chan.wm_iters)
     print(f"time per call ({card}), wall_model_tau P={u_par.numel()} "
-          f"iters={chan.wm_iters} float32:")
+          f"iters={chan.wm_iters} float32 (one wall: P={u_one.numel()}):")
     ms, call_ms = time_calls({
         "plain": lambda: wall_model.wall_model_tau_plain(u_par, rho_m, **wkw),
-        "kernel": lambda: wall_model.wall_model_tau(u_par, rho_m, **wkw)})
+        "kernel": lambda: wall_model.wall_model_tau(u_par, rho_m, **wkw),
+        "kernel one wall": lambda: wall_model.wall_model_tau(u_one, rho_one,
+                                                             **wkw)})
     print("  library call: none, no single PyTorch call inverts the wall law")
+    bound_one = bound_ms("wall_model_tau one wall", 3 * nbytes(u_one),
+                         wall_model_operations(u_one.numel(), chan.wm_iters))
     record["wall_model_tau"] = dict(
         ms=ms, call_ms=call_ms, library_ms=None,
         bound=bound_ms("wall_model_tau", 3 * nbytes(u_par),
-                       wall_model_operations(u_par.numel(), chan.wm_iters)))
+                       wall_model_operations(u_par.numel(), chan.wm_iters)),
+        extra={"one_wall_call": {"p": u_one.numel(),
+                                 "ms": ms["kernel one wall"],
+                                 "call_ms": call_ms["kernel one wall"],
+                                 "bound_ms": bound_one[0]}})
     # the LM kernels at hymba's prefill of 4 x 2,048 tokens, bf16 as served
     b, hq, hkv, sq = 4, lm_cfg.n_heads, lm_cfg.kv_heads, 2048
     d, win, bf16 = lm_cfg.hd, lm_cfg.window, torch.bfloat16
@@ -868,10 +936,12 @@ def main() -> int:
     ones = torch.ones((sq, sq), dtype=torch.bool, device=dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # what the bf16 call launches on the card: the tensor-core kernel alone
-    # (5 calls in a window; a window the profiler dropped is traced again)
+    # (50 calls in a window, as `device_ms` traces them: windows of 5 once
+    # showed no kernel three times; a window the profiler dropped is traced
+    # again)
     for _ in range(3):
         _, rows = traced(lambda: [flash_attention.flash_attention(
-            q, k, v, window=win) for _ in range(5)])
+            q, k, v, window=win) for _ in range(50)])
         if rows:
             break
     names = [r[2] for r in rows]
@@ -920,28 +990,43 @@ def main() -> int:
     vs = torch.randn((rows, sq, d), generator=gen).to(dev, bf16)
     ws = torch.exp(-0.1 * torch.rand((rows, sq, n), generator=gen)).to(dev)
     s0 = torch.zeros((rows, n, d), device=dev)
-    for label, t_len in (("prefill", sq), ("one decode step", 1)):
+    # the prefill on both instances side by side (the path's: chunked),
+    # a decode step on the step instance (the path's)
+    for label, t_len, kinds in (("prefill", sq, ("chunked", "step")),
+                                ("one decode step", 1, ("step",))):
         qt, kt, vt, wt = (x[:, :t_len].contiguous() for x in (qs, ks, vs, ws))
         st = s0 if t_len == 1 else None
         print(f"time per call ({card}), linear_scan {label} q/k/w "
               f"{tuple(qt.shape)} v {tuple(vt.shape)} (q, v bf16; k, w "
-              f"f32{'; s0 f32' if st is not None else ''}):")
-        ms, call_ms = time_calls({
-            "plain": lambda: linear_scan.linear_scan_chunked(
-                qt, kt, vt, wt, None, st, decay_before_read=True,
-                chunk=lm_cfg.scan_chunk),
-            "kernel": lambda: linear_scan.linear_scan(
-                qt, kt, vt, wt, None, st, decay_before_read=True)})
+              f"f32{'; s0 f32' if st is not None else ''}), instances "
+              f"{kinds} (the rule picks "
+              f"{linear_scan.pick_instance(t_len, n)}):")
+        calls = {"plain": lambda: linear_scan.linear_scan_chunked(
+            qt, kt, vt, wt, None, st, decay_before_read=True,
+            chunk=lm_cfg.scan_chunk)}
+        for kind in kinds:
+            calls[f"kernel {kind}"] = functools.partial(
+                linear_scan.linear_scan, qt, kt, vt, wt, None, st,
+                decay_before_read=True, instance=kind)
+        ms, call_ms = time_calls(calls)
         out_bytes = vt.numel() * 2 + s0.numel() * 4  # o bf16, S_final f32
         bound = bound_ms(f"linear_scan {label}",
                          nbytes(qt, kt, vt, wt) + out_bytes
                          + (nbytes(st) if st is not None else 0),
                          scan_operations(rows, t_len, n, d, True))
-        if t_len == sq:
-            print("  library call: none, no single PyTorch call computes "
-                  "the gated linear recurrence")
-            record["linear_scan"] = dict(ms=ms, call_ms=call_ms,
-                                         library_ms=None, bound=bound)
+        kind = kinds[0]
+        ms["kernel"], call_ms["kernel"] = (ms[f"kernel {kind}"],
+                                           call_ms[f"kernel {kind}"])
+        print(f"  linear_scan {label} ({card}): {kind} instance "
+              f"{ms['kernel']:.7f} ms, {100 * bound[0] / ms['kernel']:.3f}% "
+              f"of the bound's speed ({bound[0]:.7f} ms by {bound[1]})"
+              + (f"; step instance {ms['kernel step']:.7f} ms "
+                 f"({ms['kernel step'] / ms['kernel']:.3f}x)"
+                 if kind != "step" else ""))
+        print("  library call: none, no single PyTorch call computes the "
+              "gated linear recurrence")
+        record[f"linear_scan {kind}"] = dict(ms=ms, call_ms=call_ms,
+                                             library_ms=None, bound=bound)
     for name, rec in record.items():
         b, by = rec["bound"]
         print(f"{name} ({card}): device time {rec['ms']['kernel']:.7f} ms "
@@ -979,7 +1064,7 @@ def main() -> int:
     rhs_calls = (chan_iter + 1) * chan.n_actions * chan.n_substeps * 5
     if rhs_calls != 2 * 20 * 26 * 5:
         raise AssertionError(f"channel episode arithmetic gives {rhs_calls}")
-    chan_expected = [0, rhs_calls, rhs_calls, 2 * rhs_calls, 0, 0]
+    chan_expected = [0, rhs_calls, rhs_calls, rhs_calls, 0, 0]
     _, counts, wall, step = train("channel_wm", chan_iter, counters)
     print(f"main path channel_wm: {wall:.2f} s wall, launches "
           f"{dict(zip(names, counts))} (expected "
@@ -1005,6 +1090,10 @@ def main() -> int:
     lm_launches = [0] * len(counters)
     by_instance = flash_attention.flash_attention.instance_launches
     flash_instances = dict.fromkeys(by_instance, 0)
+    scan_by_instance = linear_scan.linear_scan.instance_launches
+    scan_instances = dict.fromkeys(scan_by_instance, 0)
+    scan_per_batch = {"step": lm_cfg.n_layers * (n_new - 1),
+                      "chunked": lm_cfg.n_layers}
     for seed, n_prompts, s_len in ((3, 4, 2048), (4, 4, 700)):
         prompt = lm_batch(seed, n_prompts, s_len, lm_cfg.vocab)["tokens"].to(
             dev)
@@ -1014,12 +1103,15 @@ def main() -> int:
             fn.launches = 0
         for key in by_instance:
             by_instance[key] = 0
+        for key in scan_by_instance:
+            scan_by_instance[key] = 0
         t0 = time.perf_counter()
         out = lm.greedy_generate(params, serve_cfg, prompt, n_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = [fn.launches for fn in counters]
         instances = dict(by_instance)
+        scan_split = dict(scan_by_instance)
         peak = torch.cuda.max_memory_allocated()
         label = f"hymba-1.5b greedy_generate {n_prompts} x {s_len} tokens"
         print(f"main path {label} + {n_new} new: {wall:.3f} s wall, "
@@ -1037,6 +1129,14 @@ def main() -> int:
                                  f"tensor cores")
         for key, n_ in instances.items():
             flash_instances[key] += n_
+        print(f"  linear_scan launches by instance: {scan_split}")
+        if scan_split != scan_per_batch:
+            raise AssertionError(f"{label}: scan instances {scan_split}, "
+                                 f"expected {scan_per_batch} (prefill on "
+                                 f"the chunked instance, decode on the "
+                                 f"step one)")
+        for key, n_ in scan_split.items():
+            scan_instances[key] += n_
         if out.shape != (n_prompts, n_new) or out.dtype != torch.int64 \
                 or not bool(((out >= 0) & (out < lm_cfg.vocab)).all()):
             raise AssertionError(f"{label}: tokens {out.dtype} "
@@ -1072,8 +1172,11 @@ def main() -> int:
         raise AssertionError(f"serving launches {lm_launches}, expected "
                              f"{[2 * c for c in per_batch]}")
     print(f"main path hymba-1.5b serving, both batches: flash_attention "
-          f"launches by instance {flash_instances}")
-    launches.update(zip(names[4:], lm_launches[4:]))
+          f"launches by instance {flash_instances}, linear_scan launches "
+          f"by instance {scan_instances}")
+    launches["flash_attention"] = lm_launches[4]
+    for kind, n_ in scan_instances.items():
+        launches[f"linear_scan {kind}"] = n_
 
     # --- 5b. where the paths' time goes (after the counts were read) ---------
     runner = Runner(env, FleetConfig(n_envs=16, bank_size=17), device=dev)
@@ -1094,8 +1197,14 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"one channel_wm RL step of 16 envs, unprofiled: "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms wall")
-    profile_window("one channel_wm RL step of 16 envs (env.step)",
-                   lambda: chan_env.step(chan_state, chan_action), card)
+    chan_launches = profile_window(
+        "one channel_wm RL step of 16 envs (env.step)",
+        lambda: chan_env.step(chan_state, chan_action), card)
+    if chan_launches is not None:
+        per_step = chan.n_substeps * 5
+        print(f"  channel_wm: {chan_launches} launches in the trace over "
+              f"{per_step} RHS calls, {chan_launches / per_step:.1f} per RHS "
+              f"(the profiler may drop a few)")
     prompt = lm_batch(3, 4, 2048, lm_cfg.vocab)["tokens"].to(dev)
     profile_window("one hymba-1.5b prefill of 4 x 2048 tokens (api.prefill)",
                    lambda: api.prefill(params, serve_cfg, {"tokens": prompt},
@@ -1115,7 +1224,9 @@ def main() -> int:
                "wall_model_tau": ("wall_model.cu", "wall_model.py:46"),
                "flash_attention": ("flash_attention_tc.cu",
                                    "flash_attention.py:99"),
-               "linear_scan": ("linear_scan.cu", "linear_scan.py:105")}
+               "linear_scan chunked": ("linear_scan_chunked.cu",
+                                       "linear_scan.py:105"),
+               "linear_scan step": ("linear_scan.cu", "linear_scan.py:105")}
     # flash attention: the main path's bf16 tensor-core instance; the
     # float32 CUDA-core instance beside it
     errs["flash_attention"] = errs["flash_attention bfloat16"]
@@ -1128,6 +1239,12 @@ def main() -> int:
         "max_abs_err": errs["fused_navier_stokes_rhs two_pass"],
         "ms": rec["ms"]["kernel two_pass"],
         "call_ms": rec["call_ms"]["kernel two_pass"]}}
+    # the scan: prefill on the chunked instance, decode on the step one, each
+    # timed at its path's shape; the step instance at the prefill beside
+    rec = record["linear_scan chunked"]
+    rec["extra"] = {"step_instance_at_prefill": {
+        "ms": rec["ms"]["kernel step"],
+        "call_ms": rec["call_ms"]["kernel step"]}}
     record["flash_attention"]["extra"] = {"float32_instance": {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "max_abs_err": errs["flash_attention float32"],

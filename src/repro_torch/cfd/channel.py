@@ -334,10 +334,9 @@ def wall_stress_magnitude(u_par: torch.Tensor, rho_w: torch.Tensor,
     kernel with `cfg.use_kernels`, else its plain version."""
     kw = dict(y_m=y_m, nu=cfg.nu, kappa=cfg.kappa, iters=cfg.wm_iters)
     if cfg.use_kernels:
-        # the kernel takes contiguous operands of one shape: rho_w may be
-        # a strided view of the state or a broadcast
-        return wall_model.wall_model_tau(
-            u_par.contiguous(), rho_w.expand(u_par.shape).contiguous(), **kw)
+        # on the card the kernel takes contiguous operands of one shape, as
+        # `wall_fluxes` builds them
+        return wall_model.wall_model_tau(u_par, rho_w, **kw)
     return wall_model.wall_model_tau_plain(u_par, rho_w, **kw)
 
 
@@ -348,17 +347,18 @@ def _wall_slab(arr: torch.Tensor, side: int) -> torch.Tensor:
     return arr.select(axis, 0 if side == 0 else arr.shape[axis] - 1)
 
 
-def _matching_state(u: torch.Tensor, cfg: ChannelConfig, ops: dict,
-                    side: int) -> tuple[torch.Tensor, ...]:
-    """(rho, u_x, u_z) at the wall-model matching point: the y-quadrature
-    mean of the wall-adjacent element, per (x, z) face-node column.
-    Shapes (..., Kx, Kz, n, n)."""
+def _matching_state(u: torch.Tensor, cfg: ChannelConfig, ops: dict
+                    ) -> tuple[torch.Tensor, ...]:
+    """(rho, u_x, u_z) at the wall-model matching point of both walls: the
+    y-quadrature mean of the wall-adjacent element, per (x, z) face-node
+    column.  Shapes (2, ..., Kx, Kz, n, n), bottom wall first; rho is
+    contiguous."""
     axis = dgsem.ELEM_AXIS[1] + u.ndim
-    ue = u.select(axis, 0 if side == 0 else u.shape[axis] - 1)
-    # (..., Kx, Kz, ni, nj, nk, 5): average the y node axis
+    ue = torch.stack((u.select(axis, 0), u.select(axis, u.shape[axis] - 1)))
+    # (2, ..., Kx, Kz, ni, nj, nk, 5): average the y node axis
     ue = torch.einsum("...ijkc,j->...ikc", ue, ops["w"] * 0.5)
     rho, vel, _, _ = equations.conservative_to_primitive(ue)
-    return rho, vel[..., 0], vel[..., 2]
+    return rho.contiguous(), vel[..., 0], vel[..., 2]
 
 
 def wall_fluxes(u: torch.Tensor, scale_bot: torch.Tensor,
@@ -366,28 +366,32 @@ def wall_fluxes(u: torch.Tensor, scale_bot: torch.Tensor,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Combined (advective - viscous) +y numerical flux at the two wall
     faces, each (..., Kx, Kz, n, n, 5).  scale_bot / scale_top: RL
-    wall-stress scaling at face nodes, (..., Kx, Kz, n, n)."""
+    wall-stress scaling at face nodes, (..., Kx, Kz, n, n).
+
+    Both walls go through one batch, stacked on a leading axis of size 2
+    (bottom, top): one wall-model call per RHS on both walls' points."""
     lo_tr, hi_tr = dgsem._face_slices(u, 1)
-    u_wall = (_wall_slab(lo_tr, 0), _wall_slab(hi_tr, 1))
+    u_wall = torch.stack((_wall_slab(lo_tr, 0), _wall_slab(hi_tr, 1)))
     y_m = 0.5 * cfg.dxs[1]  # matching point: wall-element centroid distance
-    out = []
-    for side, scale in ((0, scale_bot), (1, scale_top)):
-        _, _, p_w, _ = equations.conservative_to_primitive(u_wall[side])
-        rho_m, ux_m, uz_m = _matching_state(u, cfg, ops, side)
-        u_par = torch.sqrt(ux_m**2 + uz_m**2 + 1e-12)
-        tau = scale * wall_stress_magnitude(u_par, rho_m, y_m, cfg)
-        # tau_xy on the +y flux is positive at the bottom wall (du/dy > 0
-        # for flow in +x) and negative at the top
-        s = 1.0 if side == 0 else -1.0
-        tau_x = s * tau * ux_m / u_par
-        tau_z = s * tau * uz_m / u_par
-        zero = torch.zeros_like(p_w)
-        # advective: no-penetration pressure flux; viscous: modeled stress,
-        # no wall work (no slip) and no heat flux (adiabatic)
-        f_adv = torch.stack([zero, zero, p_w, zero, zero], dim=-1)
-        f_visc = torch.stack([zero, tau_x, zero, tau_z, zero], dim=-1)
-        out.append(f_adv - f_visc)
-    return out[0], out[1]
+    _, _, p_w, _ = equations.conservative_to_primitive(u_wall)
+    rho_m, ux_m, uz_m = _matching_state(u, cfg, ops)
+    u_par = torch.sqrt(ux_m**2 + uz_m**2 + 1e-12)
+    # tau_xy on the +y flux is positive at the bottom wall (du/dy > 0 for
+    # flow in +x) and negative at the top: the top's sign rides on its
+    # scale (exact, a sign flip rounds nothing)
+    side = torch.broadcast_shapes(scale_bot.shape, scale_top.shape,
+                                  u_par.shape[1:])
+    scale = torch.stack((scale_bot.expand(side), -scale_top.expand(side)))
+    tau = scale * wall_stress_magnitude(u_par, rho_m, y_m, cfg)
+    tau_x = tau * ux_m / u_par
+    tau_z = tau * uz_m / u_par
+    zero = torch.zeros_like(p_w)
+    # advective: no-penetration pressure flux; viscous: modeled stress,
+    # no wall work (no slip) and no heat flux (adiabatic)
+    f_adv = torch.stack([zero, zero, p_w, zero, zero], dim=-1)
+    f_visc = torch.stack([zero, tau_x, zero, tau_z, zero], dim=-1)
+    flux = f_adv - f_visc
+    return flux[0], flux[1]
 
 
 # --- RHS / stepping ---------------------------------------------------------

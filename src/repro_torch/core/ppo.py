@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import conv_precision
 from . import policy as policy_lib
 
 
@@ -115,10 +116,13 @@ def global_norm(tensors) -> torch.Tensor:
                           for t in tensors))
 
 
+@conv_precision()
 def update_epoch(policy: policy_lib.Policy, opt: torch.optim.Adam,
                  cfg: PPOConfig, traj: Trajectory, advantages: torch.Tensor,
                  returns: torch.Tensor) -> dict:
-    """One full-batch gradient step over the flattened (T*B) experience."""
+    """One full-batch gradient step over the flattened (T*B) experience,
+    forward and backward in the package's conv precision
+    (`repro_torch.conv_precision`)."""
     batch = flatten_batch(traj, advantages, returns,
                           normalize=cfg.normalize_advantages)
     opt.zero_grad(set_to_none=False)

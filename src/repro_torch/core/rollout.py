@@ -9,12 +9,14 @@ from __future__ import annotations
 
 import torch
 
+from .. import conv_precision
 from ..envs.base import Env, EnvState
 from . import policy as policy_lib
 from .ppo import Trajectory
 
 
 @torch.no_grad()
+@conv_precision()
 def rollout(policy: policy_lib.Policy, env: Env, u0: torch.Tensor, *,
             gen: torch.Generator | None = None,
             noise: torch.Tensor | None = None,
@@ -25,7 +27,9 @@ def rollout(policy: policy_lib.Policy, env: Env, u0: torch.Tensor, *,
     action noise (T, B, *action_shape) is drawn from `gen` before the loop,
     as the reference draws it before its scan, or fed in as `noise` (the
     tests feed the reference's draws).  A deterministic rollout takes the
-    mean action and draws nothing.  Returns a time-major Trajectory.
+    mean action and draws nothing.  The policy's convolutions run in the
+    package's precision (`repro_torch.conv_precision`).  Returns a
+    time-major Trajectory.
     """
     n_steps = env.n_actions
     batch = u0.shape[0]

@@ -167,7 +167,15 @@ class Runner(RunnerBase):
             self.failure_injector(k)  # may raise — exercised by tests
         t0 = time.perf_counter()
         backup = _host_copy(self._state_tree())
-        stats = ppo_lib.update(self.policy, self.opt, self.ppo_cfg, traj)
+        try:
+            stats = ppo_lib.update(self.policy, self.opt, self.ppo_cfg, traj)
+        except BaseException:
+            # epochs that stepped before the failure leave params and Adam
+            # state half-updated: put back the state of before the update,
+            # as the reference's functional update never assigned it, so
+            # that a retry starts from there
+            _copy_into(self._state_tree(), backup)
+            raise
         stats = {n: float(v) for n, v in stats.items()}
         # never let a non-finite update poison the params / checkpoints:
         # restore the previous state and record the skip
@@ -199,8 +207,8 @@ class Runner(RunnerBase):
                 except RuntimeError as e:  # injected / transient failure
                     if attempt == max_retries:
                         raise
-                    # deterministic replay: restore the consistent state
-                    # (none yet: params/opt are unchanged before the update)
+                    # deterministic replay: params/opt are those of before
+                    # the update (`run_iteration` restores them on failure)
                     self.restore()
                     record = {"iteration": k, "retry": attempt + 1,
                               "error": str(e)}

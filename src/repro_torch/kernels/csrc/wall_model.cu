@@ -12,11 +12,15 @@
 // What bounds it: per point it reads 2 values and writes 1 (12 bytes in
 // float32) and does `iters` rounds of about 20 operations, three of them
 // transcendental (log1pf, 2 expf) and one sqrtf.  At the channel's shapes
-// (P = 16 envs x 144 wall-face columns = 2,304 per wall) the whole call is
-// 27,648 bytes: far below what one launch costs, so launch overhead bounds
-// it on the card, not bytes or operations.  The design is one thread per
-// point with the ragged edge masked (the TPU kernel padded its last block
-// with 1s instead); the rounds run in registers.
+// (P = 2 walls x 16 envs x 144 wall-face columns = 4,608; the channel calls
+// it once per RHS for both walls) the whole call is 55,296 bytes: far below
+// what one launch costs, so the launch and each thread's chain of `iters`
+// dependent rounds bound it on the card, not bytes or operations.  The
+// design is one thread per point with the ragged edge masked (the TPU
+// kernel padded its last block with 1s instead); the rounds run in
+// registers.  Blocks are 64 threads: the card then spreads 4,608 points over
+// 72 SMs (blocks of 256 put them on 18), so each SM's schedulers interleave
+// fewer of the dependent chains.
 //
 // Built without --use_fast_math, so sqrtf and the division are IEEE-rounded
 // and log1pf / expf are CUDA's full-precision versions (within 2 ulp).  nvcc
@@ -60,7 +64,7 @@ __global__ void wall_model_kernel(const T* __restrict__ u_par,
   store(tau + i, load_f32(rho_w + i) * (u_tau * u_tau));
 }
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 64;  // see the note at the top
 
 }  // namespace
 

@@ -1,5 +1,6 @@
-"""Gated linear recurrence (o, S_final), as the CUDA kernel
-(`csrc/linear_scan.cu`) and its plain PyTorch versions.
+"""Gated linear recurrence (o, S_final), as two CUDA kernels
+(`csrc/linear_scan.cu`, `csrc/linear_scan_chunked.cu`) and their plain
+PyTorch versions.
 
     S_t = diag(w_t) S_{t-1} + k_t v_t^T                 state (dk, dv)
     o_t = q_t @ (S_{t-1} + diag(u) k_t v_t^T)           RWKV6 read
@@ -15,25 +16,83 @@ any T >= 1; o comes back in q's dtype and S_final in float32.  It is
 forward only: on a CUDA tensor it raises if grad mode is on and an input
 requires grad.
 
+Two instances, picked by shape (`pick_instance`): "chunked"
+(`linear_scan_chunked.cu`, chunk-parallel over T in three launches: each
+chunk's end state from zero, the carry over the chunks, each chunk's outputs
+from its incoming state) for T of at least one chunk and dk <= 64, "step"
+(`linear_scan.cu`, the steps in order, one launch) otherwise, e.g. a decode
+step.  `linear_scan.launches` counts the calls that launched a kernel,
+`linear_scan.instance_launches` the same by instance.
+
 `linear_scan_chunked` ports `repro/kernels/ref.py:linear_scan_chunked` (the
 Pallas kernel's chunk-parallel algorithm, o in float32) and, with o cast to
-q's dtype, is the kernel's plain version: a CPU tensor takes it.
+q's dtype, is the kernels' plain version: a CPU tensor takes it.
 `linear_scan_sequential` ports the exact step-by-step oracle
-`ref.linear_scan`.  `linear_scan.launches` counts the calls that launched
-the kernel.
+`ref.linear_scan`.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
-_SOURCE = "linear_scan.cu"
+SOURCES = {"step": "linear_scan.cu", "chunked": "linear_scan_chunked.cu"}
 _ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 4
              + (ctypes.c_int,) * 4 + (ctypes.c_int, ctypes.c_void_p))
+_ARGTYPES_CHUNKED = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 4
+                     + (ctypes.c_int,) * 4 + (ctypes.c_int,) * 3
+                     + (ctypes.c_void_p,))
 _DTYPES = (torch.float32, torch.bfloat16)
+# the chunked instance's layout, as csrc/linear_scan_chunked.cu has it:
+# state rows per thread, the largest dk, threads of a block, steps of a
+# chunk, and the shared memory that a chunk's tiles may take
+CHUNKED_ROWS = 16
+CHUNKED_MAX_DK = 64
+CHUNKED_MAX_THREADS = 256
+CHUNKED_MAX_CHUNK = 64
+CHUNKED_SMEM_BUDGET = 48 * 1024
+
+
+class ChunkPlan(NamedTuple):
+    """Lanes per column (G), columns per block, steps per chunk."""
+
+    groups: int
+    cols: int
+    chunk: int
+
+
+def _ceil_pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def chunked_plan(dk: int, dv: int) -> ChunkPlan:
+    """The chunked instance's layout for (dk, dv), as its `make_plan`: G =
+    dk/16 lanes per column (a power of two), G x cols threads (a warp to
+    256), and the largest chunk <= 64 whose tiles fit 48 KB whatever the
+    dtypes: q, k, w as float32 and as raw bf16 (chunk x 16 G each, 6 bytes
+    a value) and v as float32 (chunk x cols)."""
+    if not 1 <= dk <= CHUNKED_MAX_DK:
+        raise ValueError(f"the chunked scan takes dk <= {CHUNKED_MAX_DK}, "
+                         f"got {dk}")
+    groups = _ceil_pow2(-(-dk // CHUNKED_ROWS))
+    dkp = groups * CHUNKED_ROWS
+    cols = min(max(_ceil_pow2(dv), 32 // groups),
+               CHUNKED_MAX_THREADS // groups)
+    chunk = CHUNKED_MAX_CHUNK
+    while chunk > 1 and chunk * (18 * dkp + 4 * cols) > CHUNKED_SMEM_BUDGET:
+        chunk //= 2
+    return ChunkPlan(groups, cols, chunk)
+
+
+def pick_instance(t: int, dk: int) -> str:
+    """"chunked" for at least one full chunk of steps and dk <= 64 (hymba's
+    prefill, RWKV6's 64 x 64 state), "step" otherwise (a decode step, short
+    or ragged prompts below one chunk, dk above 64)."""
+    return ("chunked" if t >= CHUNKED_MAX_CHUNK and dk <= CHUNKED_MAX_DK
+            else "step")
 
 
 def linear_scan_sequential(q, k, v, w, u=None, s0=None, *,
@@ -144,11 +203,14 @@ def _check_inputs(q, k, v, w, u, s0) -> None:
 def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 w: torch.Tensor, u: torch.Tensor | None = None,
                 s0: torch.Tensor | None = None, *,
-                decay_before_read: bool = False, chunk: int = 64
+                decay_before_read: bool = False, chunk: int = 64,
+                instance: str | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(o in q's dtype, S_final in float32).  On the CPU the plain
-    `linear_scan_chunked` with `chunk`; on a CUDA tensor the kernel, which
-    walks the steps in order and takes no chunk size."""
+    `linear_scan_chunked` with `chunk`; on a CUDA tensor a kernel, which
+    takes its own chunk size: the instance `pick_instance` gives for the
+    shape, or the one named by `instance` ("step" or "chunked", for
+    comparing the two)."""
     if q.device.type == "cpu":
         o, s = linear_scan_chunked(q, k, v, w, u, s0,
                                    decay_before_read=decay_before_read,
@@ -159,24 +221,41 @@ def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_inputs(q, k, v, w, u, s0)
     b, t, dk = q.shape
     dv = v.shape[-1]
+    kind = pick_instance(t, dk) if instance is None else instance
+    if kind not in SOURCES:
+        raise ValueError(f"unknown linear scan instance {kind!r}")
     o = torch.empty((b, t, dv), dtype=q.dtype, device=q.device)
     s_fin = torch.empty((b, dk, dv), dtype=torch.float32, device=q.device)
     if b == 0 or t == 0:
         s_fin.copy_(s0 if s0 is not None else torch.zeros_like(s_fin))
         return o, s_fin
-    # the two small operands in float32, as the kernel reads them
+    # the two small operands in float32, as the kernels read them
     u32 = u.float().contiguous() if u is not None else None
     s032 = s0.float().contiguous() if s0 is not None else None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u32.data_ptr() if u32 is not None else None,
+            s032.data_ptr() if s032 is not None else None,
+            o.data_ptr(), s_fin.data_ptr())
+    dtypes = tuple(int(x.dtype == torch.bfloat16) for x in (q, k, v, w))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.launcher(_SOURCE, "linear_scan", _ARGTYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        u32.data_ptr() if u32 is not None else None,
-        s032.data_ptr() if s032 is not None else None,
-        o.data_ptr(), s_fin.data_ptr(), b, t, dk, dv,
-        *(int(x.dtype == torch.bfloat16) for x in (q, k, v, w)),
-        int(decay_before_read), stream)
+    if kind == "chunked":
+        plan = chunked_plan(dk, dv)
+        n_chunks = -(-t // plan.chunk)
+        s_loc = torch.empty((b, n_chunks, dk, dv), dtype=torch.float32,
+                            device=q.device)
+        prod_w = torch.empty((b, n_chunks, dk), dtype=torch.float32,
+                             device=q.device)
+        _build.launcher(SOURCES[kind], "linear_scan_chunked",
+                        _ARGTYPES_CHUNKED)(
+            *ptrs, s_loc.data_ptr(), prod_w.data_ptr(), b, t, dk, dv,
+            *dtypes, int(decay_before_read), plan.chunk, plan.cols, stream)
+    else:
+        _build.launcher(SOURCES[kind], "linear_scan", _ARGTYPES)(
+            *ptrs, b, t, dk, dv, *dtypes, int(decay_before_read), stream)
     linear_scan.launches += 1
+    linear_scan.instance_launches[kind] += 1
     return o, s_fin
 
 
 linear_scan.launches = 0
+linear_scan.instance_launches = dict.fromkeys(SOURCES, 0)

@@ -223,9 +223,10 @@ def test_channel_rhs_without_walls_is_the_periodic_hit_rhs(use_kernels):
 
 
 def test_kernel_path_calls_each_component_kernel(rhs_inputs, monkeypatch):
-    """Per RHS the kernel path calls dg_derivative3 and smagorinsky_nut once
-    and wall_model_tau once per wall (the arithmetic chip_smoke.py's launch
-    counts rest on); the staged path calls none of them."""
+    """Per RHS the kernel path calls dg_derivative3, smagorinsky_nut and
+    wall_model_tau once each, the wall model on both walls' points in one
+    batch (the arithmetic chip_smoke.py's launch counts rest on); the
+    staged path calls none of them."""
     calls = {"dg": 0, "smag": 0, "wm": 0}
 
     def spy(key, fn):
@@ -242,10 +243,41 @@ def test_kernel_path_calls_each_component_kernel(rhs_inputs, monkeypatch):
                         spy("wm", wall_model.wall_model_tau))
     u, sb, st = (torch.from_numpy(x) for x in rhs_inputs)
     tch.channel_rhs(u, sb, st, REDUCED_CFG, REDUCED_CFG.operators())
-    assert calls == {"dg": 1, "smag": 1, "wm": 2}
+    assert calls == {"dg": 1, "smag": 1, "wm": 1}
     staged = dataclasses.replace(REDUCED_CFG, use_kernels=False)
     tch.channel_rhs(u, sb, st, staged, staged.operators())
-    assert calls == {"dg": 1, "smag": 1, "wm": 2}
+    assert calls == {"dg": 1, "smag": 1, "wm": 1}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["channel_wm_reduced",
+                                  "channel_wm_hre_reduced"])
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_batched_wall_fluxes_match_reference(name, dtype, use_kernels):
+    """Both walls' fluxes from one batch (the two wall slabs stacked on an
+    axis of size 2) against the JAX package's per-wall loop, on JAX bank
+    states with non-uniform scaling; the JAX side runs its staged assembly.
+    float32: the RHS pin of 2e-5 (measured <= 1.9e-9 of max |want|);
+    bfloat16 (states, scales and the quadrature weights in bf16, as
+    `advance_rl_interval` hands them): the bf16 interval pin of 4e-2
+    (measured 3.9e-3, one bf16 ulp)."""
+    cfg_j = jenvs.make(name).cfg
+    cfg_t = dataclasses.replace(tenvs.make(name).cfg, use_kernels=use_kernels)
+    u = np.array(jenvs.make(name).initial_state_bank(jax.random.PRNGKey(4),
+                                                     2))
+    sb, st = _scales(np.random.default_rng(5), 2, cfg_t)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ops_j, ops_t = cfg_j.operators(), cfg_t.operators()
+    ops_j = dict(ops_j, w=ops_j["w"].astype(jdt))
+    ops_t = dict(ops_t, w=ops_t["w"].to(tdt))
+    want = jch.wall_fluxes(*(jnp.asarray(x, jdt) for x in (u, sb, st)),
+                           cfg_j, ops_j)
+    got = tch.wall_fluxes(*(torch.from_numpy(x).to(tdt) for x in (u, sb, st)),
+                          cfg_t, ops_t)
+    tol = {"float32": 2e-5, "bfloat16": 4e-2}[dtype]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == tdt
+        assert _rel_err(g, np.asarray(w, np.float32)) <= tol
 
 
 # --- one RL interval --------------------------------------------------------

@@ -295,11 +295,13 @@ def test_cuda_smagorinsky_matches_plain(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("iters", [8, 12])
-def test_cuda_wall_model_matches_plain(iters, dtype):
+@pytest.mark.parametrize("p", [16 * 144, 2 * 16 * 144])
+def test_cuda_wall_model_matches_plain(iters, dtype, p):
+    """One wall of the channel path (16 envs x 144 columns) and both walls
+    in one batch, as the path calls it."""
     _need_gpu()
     rng = np.random.default_rng(3)
     tdt = getattr(torch, dtype)
-    p = 16 * 144
     up = torch.from_numpy(np.geomspace(1e-3, 1.6, p).astype(
         np.float32)).to("cuda", tdt)
     rho = torch.from_numpy(rng.uniform(0.9, 1.1, p).astype(

@@ -289,6 +289,130 @@ def test_scan_dispatch_forms_agree():
         ops.gated_linear_scan(*tx, impl="pallas")
 
 
+# --- the chunked CUDA instance's algebra, emulated on the CPU -----------------
+def _chunked_instance_emulation(q, k, v, w, u, s0, *, decay_before_read,
+                                chunk):
+    """Phases A-C of csrc/linear_scan_chunked.cu in PyTorch, float32:
+    A each chunk's end state from zero, S_loc = sum_s (k_s * prod_{s<r}
+    w_r) v_s^T, with the decays as running products of w taken backwards,
+    and its decay product; B the carry over the chunk summaries, S_in(c+1)
+    = diag(prod w_c) S_in(c) + S_loc(c); C each chunk's outputs by the step
+    recurrence from S_in(c).  Padding beyond T: q = k = v = 0, w = 1."""
+    b, t, dk = q.shape
+    dv = v.shape[-1]
+    nc = -(-t // chunk)
+    pad = nc * chunk - t
+    q, k, v, w = (torch.nn.functional.pad(x.float(), (0, 0, 0, pad),
+                                          value=1.0 if x is w else 0.0)
+                  for x in (q, k, v, w))
+    q, k, v, w = (x.reshape(b, nc, chunk, -1) for x in (q, k, v, w))
+    # A
+    decay = torch.ones_like(w)
+    d = torch.ones_like(w[:, :, 0])
+    for s in range(chunk - 1, -1, -1):
+        decay[:, :, s] = d
+        d = d * w[:, :, s]
+    s_loc = torch.einsum("bcsi,bcsj->bcij", k * decay, v)
+    # B
+    state = (torch.zeros((b, dk, dv)) if s0 is None else s0.float())
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = d[:, c, :, None] * state + s_loc[:, c]
+    # C
+    st = torch.stack(s_in, dim=1)
+    ones = torch.ones(dk) if u is None else u.float()
+    outs = []
+    for s in range(chunk):
+        kv = k[:, :, s, :, None] * v[:, :, s, None, :]
+        if decay_before_read:
+            st = w[:, :, s, :, None] * st + kv
+            outs.append(torch.einsum("bci,bcij->bcj", q[:, :, s], st))
+        else:
+            outs.append(torch.einsum("bci,bcij->bcj", q[:, :, s],
+                                     st + ones[:, None] * kv))
+            st = w[:, :, s, :, None] * st + kv
+    o = torch.stack(outs, dim=2).reshape(b, nc * chunk, dv)[:, :t]
+    return o, state
+
+
+# (b, t, dk, dv, decay_before_read, with_u, with_s0, chunk): both reads,
+# u and s0 present and absent, ragged T, one chunk, a chunk plus one step,
+# and the plans' chunks of hymba's (16, 64) and RWKV6's (64, 64) states
+CHUNKED_CASES = [
+    (3, 37, 16, 64, True, False, False, 8),
+    (3, 37, 16, 64, True, False, True, 8),
+    (2, 40, 8, 16, False, True, True, 16),
+    (2, 29, 8, 16, False, False, False, 8),
+    (2, 64, 16, 64, True, False, False, 64),
+    (2, 65, 16, 64, True, False, True, 64),
+    (2, 70, 64, 64, False, True, True, 32),
+    (2, 45, 64, 64, False, False, False, 32),
+]
+
+
+@pytest.mark.parametrize("case", CHUNKED_CASES)
+def test_chunked_instance_algebra_matches_oracle(case):
+    """The chunked instance's three phases, emulated in float32, against
+    `linear_scan_sequential` and the JAX oracle `ref.linear_scan`: o and
+    S_final within the float32 pin of 2e-6 of max |reference| (measured
+    <= 2.7e-7)."""
+    dbr, chunk = case[4], case[7]
+    jx, tx = _scan_inputs(case, "float32")
+    o_e, s_e = _chunked_instance_emulation(*tx, decay_before_read=dbr,
+                                           chunk=chunk)
+    o_s, s_s = ls.linear_scan_sequential(*tx, decay_before_read=dbr)
+    o_r, s_r = ref.linear_scan(*jx, decay_before_read=dbr)
+    tol = TOL["scan"]["float32"]
+    assert o_e.shape == o_s.shape and s_e.shape == s_s.shape
+    assert _rel(o_e, o_s) <= tol and _rel(s_e, s_s) <= tol
+    assert _rel(o_e, o_r) <= tol and _rel(s_e, s_r) <= tol
+
+
+def test_scan_instance_rule_and_chunked_plan():
+    """T of at least one chunk of 64 steps with dk <= 64 takes the chunked
+    instance (hymba's prefills of 2,048 and 700 tokens, RWKV6's 64 x 64
+    state); decode (T = 1), T below a chunk and dk above 64 take the step
+    kernel.  The plans: hymba's (16, 64) one lane a column, 64 columns, 64
+    steps a chunk; RWKV6's (64, 64) four lanes, 64 columns, 32 steps."""
+    assert ls.pick_instance(1, 16) == "step"
+    assert ls.pick_instance(63, 16) == "step"
+    assert ls.pick_instance(64, 16) == "chunked"
+    assert ls.pick_instance(700, 16) == "chunked"
+    assert ls.pick_instance(2048, 16) == "chunked"
+    assert ls.pick_instance(512, 64) == "chunked"
+    assert ls.pick_instance(512, 65) == "step"
+    assert ls.chunked_plan(16, 64) == (1, 64, 64)
+    assert ls.chunked_plan(64, 64) == (4, 64, 32)
+    assert ls.chunked_plan(8, 16) == (1, 32, 64)
+    assert ls.chunked_plan(16, 1000) == (1, 256, 32)
+    for dk, dv in ((1, 1), (16, 64), (33, 7), (64, 64), (64, 65535)):
+        g, cols, chunk = ls.chunked_plan(dk, dv)
+        assert 16 * g >= dk and 32 <= g * cols <= 256
+        assert chunk * (18 * 16 * g + 4 * cols) <= ls.CHUNKED_SMEM_BUDGET
+    with pytest.raises(ValueError):
+        ls.chunked_plan(65, 64)
+
+
+def test_chunked_scan_constants_match_the_cuda_source():
+    """The layout constants `chunked_plan` reckons with are those of
+    csrc/linear_scan_chunked.cu."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(ls.__file__).parent / "csrc"
+           / ls.SOURCES["chunked"]).read_text()
+    consts = {name: int(eval(val)) for name, val in re.findall(
+        r"constexpr int (k\w+) = ([\d *]+);", src)}
+    assert consts["kRows"] == ls.CHUNKED_ROWS
+    assert consts["kMaxDk"] == ls.CHUNKED_MAX_DK
+    assert consts["kMaxThreads"] == ls.CHUNKED_MAX_THREADS
+    assert consts["kMaxChunk"] == ls.CHUNKED_MAX_CHUNK
+    assert consts["kSmemBudget"] == ls.CHUNKED_SMEM_BUDGET
+    assert ls.SOURCES == {"step": "linear_scan.cu",
+                          "chunked": "linear_scan_chunked.cu"}
+
+
 # --- the CUDA kernels (on the card only) -------------------------------------
 def _need_gpu():
     if not torch.cuda.is_available():
@@ -387,6 +511,38 @@ def test_cuda_linear_scan_matches_plain(case, dtype):
     assert o.dtype == tx[0].dtype and s.dtype == torch.float32
     assert _rel(o, o_p.to(o.dtype)) <= CARD_TOL[dtype]
     assert _rel(s, s_p) <= CARD_TOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CHUNKED_CASES + [
+    (50, 300, 16, 64, True, False, True, 64),
+    (8, 200, 64, 64, False, True, True, 64),
+    (4, 700, 16, 64, True, False, True, 64),
+    (2, 100, 16, 1000, True, False, True, 64),
+    (3, 130, 8, 16, False, True, False, 64)])
+def test_cuda_chunked_linear_scan_matches_plain(case, dtype):
+    """The chunked instance, named, vs `linear_scan_chunked` on the card
+    within chip_smoke.py's gates (float32 o 1e-4, bf16 o 4e-2, S_final
+    1e-4 of max |plain|); at T >= 64 with dk <= 64 it is also the instance
+    that the rule picks.  Below one chunk (T = 1, 29, 37, 40, 45) it runs a
+    single ragged chunk."""
+    _need_gpu()
+    _, tx = _scan_inputs(case, dtype)
+    tx = [x.cuda() if x is not None else None for x in tx]
+    dbr = case[4]
+    by_instance = ls.linear_scan.instance_launches
+    before = dict(by_instance)
+    o, s = ls.linear_scan(*tx, decay_before_read=dbr, instance="chunked")
+    torch.cuda.synchronize()
+    assert by_instance == dict(before, chunked=before["chunked"] + 1)
+    o_p, s_p = ls.linear_scan_chunked(*tx, decay_before_read=dbr)
+    assert o.dtype == tx[0].dtype and s.dtype == torch.float32
+    assert _rel(o, o_p.to(o.dtype)) <= CARD_TOL[dtype]
+    assert _rel(s, s_p) <= CARD_TOL["float32"]
+    if case[1] >= 64:
+        ls.linear_scan(*tx, decay_before_read=dbr)
+        assert by_instance["chunked"] == before["chunked"] + 2
 
 
 @pytest.mark.cuda

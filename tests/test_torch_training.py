@@ -21,6 +21,7 @@ from repro import optim as joptim
 from repro.core import policy as jpolicy
 from repro.core import ppo as jppo
 from repro.core import rollout as jrollout
+import repro_torch
 from repro_torch import envs as tenvs
 from repro_torch import resolve_device
 from repro_torch.core import checkpoints as tckpt
@@ -293,6 +294,129 @@ def test_runner_trains_and_checkpoints_round_trip(tmp_path):
     rec_b = fresh.run_iteration(2)
     assert rec_a["ppo/loss"] == rec_b["ppo/loss"]
     assert rec_a["return_norm"] == rec_b["return_norm"]
+
+
+def _record_conv_tf32(policy, seen: list):
+    """Record cuDNN's TF32 flag as each first conv of the two trunks runs
+    forward and as its weight gradient is computed in backward."""
+    flag = lambda: torch.backends.cudnn.allow_tf32  # noqa: E731
+    for trunk in (policy.actor, policy.critic):
+        trunk[0].register_forward_hook(
+            lambda *_: seen.append(("forward", flag())))
+        trunk[0].weight.register_hook(
+            lambda g: seen.append(("backward", flag())))
+
+
+@pytest.mark.parametrize("package_tf32", [False, True])
+def test_policy_convs_run_in_the_package_conv_precision(
+        setup, fixed_traj, monkeypatch, package_tf32):
+    """The package's conv-precision setting (float32 by default) is in
+    force inside the rollout's forward pass and inside both passes of
+    `update_epoch`, whatever the process-wide flag is, and the caller's
+    flag is back after each call."""
+    monkeypatch.setattr(repro_torch, "CONV_ALLOW_TF32", package_tf32)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
+                        not package_tf32)
+    pol = _port_policy(setup)
+    seen = []
+    _record_conv_tf32(pol, seen)
+    env = setup["env_t"]
+    u0 = np.array(setup["env_j"].initial_state_bank(jax.random.PRNGKey(2), 1))
+    trollout.rollout(pol, env, torch.from_numpy(u0), deterministic=True)
+    assert seen and {kind for kind, _ in seen} == {"forward"}
+    assert all(v == package_tf32 for _, v in seen), seen
+    assert torch.backends.cudnn.allow_tf32 is (not package_tf32)
+
+    seen.clear()
+    cfg = tppo.PPOConfig()
+    traj = tppo.Trajectory(**{k: torch.from_numpy(v) for k, v in
+                              fixed_traj.items()})
+    adv, ret = tppo.gae(traj, cfg.gamma, cfg.lam)
+    tppo.update_epoch(pol, tppo.make_optimizer(pol, cfg), cfg, traj, adv, ret)
+    assert {kind for kind, _ in seen} == {"forward", "backward"}, seen
+    assert all(v == package_tf32 for _, v in seen), seen
+    assert torch.backends.cudnn.allow_tf32 is (not package_tf32)
+
+
+@pytest.mark.cuda
+def test_cuda_policy_matches_cpu_at_the_float32_pin(setup, fixed_traj):
+    """The policy's outputs and one update_epoch's parameter gradients on
+    the GPU, with the process-wide cuDNN TF32 flag left at torch's default,
+    against the CPU: the package runs the convs in float32, so the float32
+    pin of `test_gae_loss_and_gradients` holds (TF32's 10-bit mantissa
+    would miss it by about an order of magnitude)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cudnn.allow_tf32 = True  # torch's default
+    rng = np.random.default_rng(11)
+    obs = rng.standard_normal((64,) + setup["env_t"].obs_spec.shape)
+    obs = torch.from_numpy(obs.astype(np.float32))
+    cfg = tppo.PPOConfig()
+    traj = tppo.Trajectory(**{k: torch.from_numpy(v) for k, v in
+                              fixed_traj.items()})
+    adv, ret = tppo.gae(traj, cfg.gamma, cfg.lam)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pol = _port_policy(setup).to(dev)
+        with torch.no_grad(), repro_torch.conv_precision():
+            mean, std = pol.distribution(obs.to(dev))
+            value = pol.value(obs.to(dev))
+        traj_d = tppo.Trajectory(*(x.to(dev) for x in traj))
+        tppo.update_epoch(pol, tppo.make_optimizer(pol, cfg), cfg, traj_d,
+                          adv.to(dev), ret.to(dev))
+        out[dev] = ([mean.cpu(), std.cpu(), value.cpu()],
+                    {n: p.grad.cpu() for n, p in pol.named_parameters()})
+    assert torch.backends.cudnn.allow_tf32
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    for name, want in out["cpu"][1].items():
+        scale = max(want.abs().max().item(), 1e-6)
+        torch.testing.assert_close(out["cuda"][1][name], want, rtol=1e-4,
+                                   atol=1e-4 * scale, msg=name)
+
+
+def test_failure_inside_the_update_is_retried_from_the_state_before_it(
+        tmp_path, monkeypatch):
+    """A RuntimeError raised inside `update_epoch` after the third of 5
+    epochs has stepped: `Runner.train` retries the iteration from the params
+    and Adam state of before the update, so params, Adam state and the
+    iteration record are bitwise those of a clean run (hit_les_reduced, 2
+    envs, seed 3; without the restore the retry ends at Adam step 8)."""
+    def run(ckpt_dir, fail_at):
+        calls = []
+        epoch = tppo.update_epoch
+
+        def update_epoch(*args, **kwargs):
+            calls.append(1)
+            if len(calls) == fail_at:
+                raise RuntimeError("injected inside the update")
+            return epoch(*args, **kwargs)
+
+        monkeypatch.setattr(tppo, "update_epoch", update_epoch)
+        runner = Runner(tenvs.make("hit_les_reduced"),
+                        FleetConfig(n_envs=2, bank_size=3),
+                        run_cfg=RunnerConfig(n_iterations=1, eval_every=5,
+                                             checkpoint_dir=str(ckpt_dir),
+                                             seed=3),
+                        device="cpu")
+        history = runner.train()
+        return runner, history, len(calls)
+
+    clean, clean_hist, clean_calls = run(tmp_path / "clean", fail_at=None)
+    retried, retried_hist, retried_calls = run(tmp_path / "retried",
+                                               fail_at=4)
+    assert clean_calls == 5 and retried_calls == 4 + 5
+    timing = {"t_sample_s", "t_update_s"}
+    assert [{k: v for k, v in rec.items() if k not in timing}
+            for rec in retried_hist] == [
+        {k: v for k, v in rec.items() if k not in timing}
+        for rec in clean_hist]
+    want, got = clean._state_tree(), retried._state_tree()
+    for name, p in want["params"].items():
+        assert torch.equal(got["params"][name], p), name
+        for slot, v in want["opt"][name].items():
+            assert torch.equal(got["opt"][name][slot], v), (name, slot)
+    assert all(float(s["step"]) == 5.0 for s in got["opt"].values())
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked(tmp_path):

@@ -11,11 +11,13 @@ In order, and any failure exits non-zero:
      False: float32), which is printed, so that the run measures what the
      entry point runs;
   2. builds every CUDA kernel of the three paths from the sources in the
-     checkout (one nvcc per source, all nine started together: the fused
-     RHS has a cluster and a two-pass source, flash attention a bf16
-     tensor-core and a float32 CUDA-core one, the linear scan a chunked and
-     a step one) and prints each build's time and nvcc's register report (a
-     spill in the RHS cluster kernel fails), then the RHS cluster plans of
+     checkout (one nvcc per source, all ten started together: the fused
+     RHS has a cluster and a two-pass source, dg_derivative3 a tiled and a
+     generic one, flash attention a bf16 tensor-core and a float32
+     CUDA-core one, the linear scan a chunked and a step one) and prints
+     each build's time and nvcc's register report (a spill in the RHS
+     cluster kernel, the tiled dg_derivative3 or smagorinsky_nut fails),
+     then the RHS cluster plans of
      24-DOF and 32-DOF and how many of their clusters the card holds at
      once, and the chunked scan's plan, blocks per SM and waves at hymba's
      prefills;
@@ -23,7 +25,10 @@ In order, and any failure exits non-zero:
      and bfloat16: the fused RHS, both instances, on synthetic and real HIT
      states (24-DOF, 32-DOF, n=3 K=3, a non-cubic mesh), the cluster
      instance also bit for bit against itself; the three
-     channel kernels at the channel path's shapes and beyond; flash
+     channel kernels at the channel path's shapes and beyond
+     (dg_derivative3 on both instances, the tiled one at every n from 2 to
+     8 and C from 1 to 5; smagorinsky_nut on the strided views it reads in
+     place, aligned or not, and a stride-0 C_s); flash
      attention (each instance, with the model's transposed views, D up to
      256, ragged S) and the linear scan (each instance) at hymba-1.5b's
      shapes and at the other corners of their contracts; then one RL
@@ -47,6 +52,14 @@ In order, and any failure exits non-zero:
      tensor-core kernel alone); the linear scan's two instances side by
      side at hymba's prefill and the step instance at decode; the wall
      model at both walls' P = 4,608 beside one wall's 2,304;
+     dg_derivative3's two instances and torch.matmul(K, u) at the channel's
+     shape and at 1,024 elements of n = 6; smagorinsky_nut at P = 36,864
+     and 6 x that on the gradient's velocity rows (the path's call), on a
+     contiguous copy and as a copy plus the kernel (PR 16's call); the
+     card's floor per launch (a one-element PyTorch elementwise kernel);
+     and the device kernels of a bf16 dg_derivative3 call with a bf16 D
+     and of smagorinsky_nut as the channel calls it (each its kernel
+     alone: no cast, no copy);
   5. drives the three paths through their entry points, each with every
      launch count set to 0 just before it and read just after:
      `hit_les_24dof` through `repro_torch.launch.rl_train` (2 PPO iterations
@@ -55,7 +68,8 @@ In order, and any failure exits non-zero:
      `channel_wm` (1 iteration + 1
      evaluation, 16 envs) must launch dg_derivative3, smagorinsky_nut and
      wall_model_tau exactly 2 x 20 x 26 x 5 times each (the wall model once
-     per RHS for both walls); hymba-1.5b serving (bf16 weights from a seed,
+     per RHS for both walls; dg_derivative3 all on its tiled instance);
+     hymba-1.5b serving (bf16 weights from a seed,
      `lm.greedy_generate` of 32 new tokens for 4 prompts of 2,048 Zipf
      tokens, then for 4 of 700) must launch flash_attention 32 times, all on
      its tensor-core instance, and linear_scan 1,024 times per batch (32
@@ -66,6 +80,7 @@ In order, and any failure exits non-zero:
      (torch.profiler) to show where the time goes;
   6. prints one JSON line per the kernels' record, then the last line
      `{"ok": true, "device": {...}}`.
+Each phase's start is printed with the run's time so far.
 
 It needs a CUDA device and the repository's `src/` beside it.
 """
@@ -266,9 +281,21 @@ def traced(fn) -> tuple[float, list[tuple[float, int, str]]]:
     return wall_ms, rows
 
 
+def trace_kernels(fn, calls: int = 50) -> list[tuple[float, int, str]]:
+    """The device kernels in a trace of `calls` back-to-back calls of `fn`,
+    as `traced` gives them: 50 calls, as `device_ms` traces them (windows
+    of 5 once showed no kernel); a window the profiler dropped is traced
+    again, up to three times in all."""
+    for _ in range(3):
+        _, rows = traced(lambda: [fn() for _ in range(calls)])
+        if rows:
+            break
+    return rows
+
+
 # the device functions of the port's own kernels, as the trace names them
 OWN_KERNELS = ("ns_rhs_cluster_kernel", "grad_pass", "div_pass",
-               "dg_derivative3_kernel",
+               "dg_derivative3_kernel", "dg_derivative3_tiled_kernel",
                "smagorinsky_kernel", "wall_model_kernel",
                "flash_attention_kernel", "flash_attention_tc_kernel",
                "linear_scan_kernel", "chunk_state_kernel",
@@ -466,6 +493,12 @@ def main() -> int:
     from repro_torch.models import api, lm
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def elapsed(label: str) -> None:
+        """The run's time so far, at the start of `label`."""
+        print(f"[{time.perf_counter() - t_start:.1f} s] {label}")
+
     # --- 1. the card and the numerics flags ---------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -483,7 +516,8 @@ def main() -> int:
           f"(conv_precision, around the rollout and each PPO epoch)")
 
     # --- 2. build: one nvcc per source, all started together -----------------
-    sources = (*rhs.SOURCES.values(), dg_derivative._SOURCE,
+    elapsed("phase 2: build")
+    sources = (*rhs.SOURCES.values(), *dg_derivative.SOURCES.values(),
                smagorinsky._SOURCE,
                wall_model._SOURCE, *flash_attention.SOURCES.values(),
                *linear_scan.SOURCES.values())
@@ -501,13 +535,24 @@ def main() -> int:
     for source, secs in build_s.items():
         _build.load(source)
         print(f"built {source} in {secs:.2f} s")
-        for line in ptxas_report(_build.build_logs.get(source, "")):
+        report = ptxas_report(_build.build_logs.get(source, ""))
+        if len(report) > 8:  # the tiled dg_derivative3: 42 instantiations
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers",
+                                                "\n".join(report))]
+            spilled = sum(int(b) for b in re.findall(
+                r"(\d+) bytes spill", "\n".join(report)))
+            print(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+                  f"registers, {spilled} bytes of spills")
+            continue
+        for line in report:
             print("  ptxas:", line)
-    spills = [line for line in ptxas_report(
-        _build.build_logs.get(rhs.SOURCES["cluster"], ""))
-        if any(int(b) for b in re.findall(r"(\d+) bytes spill", line))]
-    if spills:
-        raise AssertionError(f"the RHS cluster kernel spills: {spills}")
+    for source in (rhs.SOURCES["cluster"], dg_derivative.SOURCES["tiled"],
+                   smagorinsky._SOURCE):
+        spills = [line for line in ptxas_report(
+            _build.build_logs.get(source, ""))
+            if any(int(b) for b in re.findall(r"(\d+) bytes spill", line))]
+        if spills:
+            raise AssertionError(f"a kernel of {source} spills: {spills}")
     cluster_lib = _build.load(rhs.SOURCES["cluster"])
     for label, cfg in (("24-DOF", relexi_hit.HIT24),
                        ("32-DOF", relexi_hit.HIT32)):
@@ -552,6 +597,7 @@ def main() -> int:
               f"({card})")
 
     # --- 3. kernel vs plain on the card --------------------------------------
+    elapsed("phase 3: kernel vs plain")
     gen = torch.Generator().manual_seed(0)
     cases = [("24-DOF", (16,), relexi_hit.HIT24, None),
              ("32-DOF", (4,), relexi_hit.HIT32, None),
@@ -598,38 +644,80 @@ def main() -> int:
                     errs[f"fused_navier_stokes_rhs {kind}"] = err
 
     # the three channel kernels: the channel path's shapes first (16 envs)
+    elapsed("phase 3: channel kernels")
     chan = envs.make("channel_wm").cfg
     kx, ky, kz = chan.n_elem
     n = chan.n
     p_nodes = 16 * kx * ky * kz * n**3           # 36,864 nodes
     p_wall = 16 * kx * kz * n * n                # 2,304 wall-face columns
     # of one wall; the path batches both walls, 4,608
+    dg_instances = dg_derivative.dg_derivative3.instance_launches
+    if dg_derivative.pick_instance(9, 4, torch.float32) != "generic":
+        raise AssertionError("dg_derivative3 picks the tiled instance at n=9")
     for dtype in (torch.float32, torch.bfloat16):
         tname = str(dtype).split(".")[-1]
-        for label, b, nn, c in (("channel", 16 * kx * ky * kz, n, 4),
-                                ("HIT n=6", 16 * 64, 6, 4),
-                                ("C=5", 16 * kx * ky * kz, n, 5)):
+        # dg_derivative3: the paths' shapes (the channel, HIT's n = 6) on
+        # both instances; the tiled instance at every n it is built for,
+        # C = 1..5 and ragged batches; the generic instance at n = 9.  D in
+        # u's dtype, as the rollouts hand it over
+        dg_cases = [("channel", 16 * kx * ky * kz, n, 4, ("tiled", "generic")),
+                    ("HIT n=6", 16 * 64, 6, 4, ("tiled", "generic")),
+                    ("n=9", 577, 9, 4, ("generic",))]
+        dg_cases += [(f"n={nn} C={c}", b, nn, c, ("tiled",))
+                     for nn in range(2, 9) for c in range(1, 6)
+                     for b in (1, 577)]
+        for label, b, nn, c, kinds in dg_cases:
             u = torch.randn((b, nn, nn, nn, c), generator=gen).to(dev, dtype)
             d = torch.as_tensor(gll.lagrange_derivative_matrix(nn - 1),
-                                dtype=torch.float32, device=dev)
-            got = dg_derivative.dg_derivative3(u, d)
-            torch.cuda.synchronize()
-            want = dg_derivative.dg_derivative3_plain(u, d)
-            err = max(parity(f"dg_derivative3 {label} {tuple(u.shape)} "
-                             f"{tname} du{i}", g, w_, TOL[tname])
-                      for i, (g, w_) in enumerate(zip(got, want)))
-            if label == "channel" and dtype == torch.float32:
-                errs["dg_derivative3"] = err
-        g = torch.randn((p_nodes, 3, 3), generator=gen).to(dev, dtype)
-        cs = torch.full((p_nodes,), chan.cs_sgs, device=dev, dtype=dtype)
-        got = smagorinsky.smagorinsky_nut(g, cs, chan.delta_filter)
-        torch.cuda.synchronize()
-        err = parity(f"smagorinsky_nut P={p_nodes} {tname}", got,
-                     smagorinsky.smagorinsky_nut_plain(g, cs,
-                                                       chan.delta_filter),
-                     TOL_ELEMENTWISE[tname])
-        if dtype == torch.float32:
-            errs["smagorinsky_nut"] = err
+                                dtype=dtype, device=dev)
+            want = torch.stack(dg_derivative.dg_derivative3_plain(u, d))
+            for kind in kinds:
+                before = dict(dg_instances)
+                got = dg_derivative.dg_derivative3(u, d, instance=kind)
+                torch.cuda.synchronize()
+                if dg_instances != dict(before, **{kind: before[kind] + 1}):
+                    raise AssertionError(f"dg_derivative3 {label} did not "
+                                         f"launch its {kind} instance once")
+                err = parity(f"dg_derivative3 [{kind}] {label} "
+                             f"{tuple(u.shape)} {tname} (du0, du1, du2)",
+                             torch.stack(got), want, TOL[tname])
+                if label == "channel" and dtype == torch.float32:
+                    errs[f"dg_derivative3 {kind}"] = err
+        # smagorinsky_nut: the contiguous (P, 3, 3) of PR 16 and the views
+        # the kernel reads in place: the velocity rows of a (P, 4, 3)
+        # gradient as the channel hands them over (s_p = 12), the same one
+        # point (48 bytes) and 9 values (not 16-byte aligned) into a larger
+        # buffer, with a stride-0 C_s, and a point stride of 60 (more than
+        # the kernel stages); P of the path and a ragged one
+        for p_pts in (p_nodes, 1007):
+            for label, offset, s_p, cs_stride0 in (
+                    ("contiguous", 0, 9, False),
+                    ("rows of (P, 4, 3)", 0, 12, False),
+                    ("rows one point in", 12, 12, False),
+                    ("rows 9 values in", 9, 12, False),
+                    ("rows, stride-0 cs", 0, 12, True),
+                    ("point stride 60", 0, 60, False)):
+                buf = torch.randn((offset + p_pts * s_p,), generator=gen).to(
+                    dev, dtype)
+                g = buf[offset:].view(p_pts, s_p // 3, 3)[:, :3]
+                cs = (torch.full((), chan.cs_sgs, device=dev,
+                                 dtype=dtype).expand(p_pts) if cs_stride0
+                      else (0.5 * torch.rand((p_pts,), generator=gen)).to(
+                          dev, dtype))
+                before = smagorinsky.smagorinsky_nut.launches
+                got = smagorinsky.smagorinsky_nut(g, cs, chan.delta_filter)
+                torch.cuda.synchronize()
+                if smagorinsky.smagorinsky_nut.launches != before + 1:
+                    raise AssertionError(f"smagorinsky_nut {label} did not "
+                                         f"launch its kernel once")
+                err = parity(f"smagorinsky_nut {label} P={p_pts} strides "
+                             f"{g.stride()}/{cs.stride()} {tname}", got,
+                             smagorinsky.smagorinsky_nut_plain(
+                                 g, cs, chan.delta_filter),
+                             TOL_ELEMENTWISE[tname])
+                if p_pts == p_nodes and label == "rows of (P, 4, 3)" \
+                        and dtype == torch.float32:
+                    errs["smagorinsky_nut"] = err
         # matching-point speeds across the viscous sublayer and the log
         # layer: one wall, and both walls in one batch as the path calls it
         for p_pts in (p_wall, 2 * p_wall):
@@ -651,6 +739,7 @@ def main() -> int:
                     errs["wall_model_tau"] = err
 
     # flash attention: hymba's prefill (window 1024 on 28 layers, full on 4)
+    elapsed("phase 3: LM kernels")
     # and the contract's other corners; bf16 runs the tensor-core instance,
     # float32 the CUDA-core one.  "views": q, k, v as the model hands them
     # over, (B, S, H, D) transposed to (B, H, S, D)
@@ -736,6 +825,7 @@ def main() -> int:
                 if label == "hymba GLA" and dtype == torch.float32:
                     errs[f"linear_scan {kind}"] = err
 
+    elapsed("phase 3: RL intervals")
     # one RL interval of each scenario: the kernel path vs the staged plain
     # assembly, both on the card
     env = envs.make("hit_les_24dof")
@@ -760,6 +850,7 @@ def main() -> int:
            f"RHS calls), kernel path vs staged plain path", u_ker, u_ref,
            TOL["float32"])
 
+    elapsed("phase 3: hymba-1.5b float32 and bf16")
     # hymba-1.5b at full width in float32: prefill of 2 x 1,100 tokens (the
     # window of 1,024 wraps) and 4 teacher-forced decode steps, the kernel
     # path against the plain path
@@ -813,6 +904,7 @@ def main() -> int:
     del params16, got16, plain16
 
     # --- 4. time each kernel at its path's shape (16 envs, float32) ----------
+    elapsed("phase 4: timing")
     record = {}
     # the fused RHS: the cluster instance (the path's), the two-pass one
     # and the plain version at 24-DOF and 32-DOF, 16 envs, float32 and bf16
@@ -846,13 +938,9 @@ def main() -> int:
                 rhs_args, rhs_kw = args, kw
     print("  library call: none, no single PyTorch call computes this RHS")
     # what one RHS call launches on the card: the cluster kernel alone, once
-    # per call (50 calls in a window, as `device_ms` traces them: shorter
-    # windows showed no kernel; the profiler may drop a few launches)
-    for _ in range(3):
-        _, rows = traced(lambda: [rhs.fused_navier_stokes_rhs(
-            *rhs_args, **rhs_kw) for _ in range(50)])
-        if rows:
-            break
+    # per call (the profiler may drop a few launches)
+    rows = trace_kernels(lambda: rhs.fused_navier_stokes_rhs(*rhs_args,
+                                                             **rhs_kw))
     print(f"fused RHS 24-DOF call x 50, device kernels in its trace: "
           f"{[(r[2], r[1]) for r in rows]}")
     if len(rows) != 1 or "ns_rhs_cluster_kernel" not in rows[0][2] \
@@ -860,46 +948,150 @@ def main() -> int:
         raise AssertionError("a fused RHS call did not launch the cluster "
                              "kernel alone, once")
 
-    # the channel kernels on the operands of the path: a bank state's
-    # primitives, its gradient, its wall-face columns
+    elapsed("phase 4: channel kernels")
+    # the card's floor per launch: the device time of a one-element PyTorch
+    # elementwise kernel, timed beside the two kernels
     chan_ops = chan.operators(dev)
+    one = torch.zeros((1,), device=dev)
+    floor = {"launch floor": lambda: one.add_(1.0)}
+    # dg_derivative3 on both instances, beside torch.matmul(K, u) (its
+    # library call): at the channel's shape (a bank state's primitives, 576
+    # elements of 4^3 x 4) and at HIT's n = 6 (1,024 elements)
     rho_c, vel_c, _, temp_c = equations.conservative_to_primitive(
         chan_bank)
-    q = torch.cat([vel_c, temp_c[..., None]], dim=-1).reshape(
+    q_chan = torch.cat([vel_c, temp_c[..., None]], dim=-1).reshape(
         (-1, n, n, n, 4)).contiguous()
-    d = chan_ops["D"]
-    kron = torch.kron
-    eye = torch.eye(n, device=dev)
-    k_mat = torch.cat([kron(kron(d, eye), eye), kron(kron(eye, d), eye),
-                       kron(kron(eye, eye), d)])  # (3 n^3, n^3)
-    q_lines = q.view(q.shape[0], n**3, 4)
-    print(f"time per call ({card}), dg_derivative3 {tuple(q.shape)} float32:")
-    ms, call_ms = time_calls({
-        "plain": lambda: dg_derivative.dg_derivative3_plain(q, d),
-        "kernel": lambda: dg_derivative.dg_derivative3(q, d),
-        "library": lambda: torch.matmul(k_mat, q_lines)})
-    lib_out = torch.matmul(k_mat, q_lines).view(q.shape[0], 3, n, n, n, 4)
-    for i, ref in enumerate(dg_derivative.dg_derivative3_plain(q, d)):
-        parity(f"library call torch.matmul(K, u) du{i} vs plain",
-               lib_out[:, i].contiguous(), ref, TOL["float32"])
-    record["dg_derivative3"] = dict(
-        ms=ms, call_ms=call_ms, library_ms=ms["library"],
-        bound=bound_ms("dg_derivative3", 4 * nbytes(q) + nbytes(d),
-                       dg_derivative3_operations(q)))
+    q_six = torch.randn((1024, 6, 6, 6, 4), generator=gen).to(dev)
+    dg_extra = {}
+    for label, q in (("channel", q_chan), ("n=6", q_six)):
+        nq = q.shape[1]
+        d = torch.as_tensor(gll.lagrange_derivative_matrix(nq - 1),
+                            dtype=torch.float32, device=dev)
+        eye = torch.eye(nq, device=dev)
+        kron = torch.kron
+        k_mat = torch.cat([kron(kron(d, eye), eye), kron(kron(eye, d), eye),
+                           kron(kron(eye, eye), d)])  # (3 n^3, n^3)
+        q_lines = q.view(q.shape[0], nq**3, 4)
+        print(f"time per call ({card}), dg_derivative3 {tuple(q.shape)} "
+              f"float32 (the rule picks "
+              f"{dg_derivative.pick_instance(nq, 4, q.dtype)}):")
+        ms, call_ms = time_calls({
+            "plain": functools.partial(dg_derivative.dg_derivative3_plain,
+                                       q, d),
+            "kernel": functools.partial(dg_derivative.dg_derivative3, q, d,
+                                        instance="tiled"),
+            "kernel generic": functools.partial(dg_derivative.dg_derivative3,
+                                                q, d, instance="generic"),
+            "library": functools.partial(torch.matmul, k_mat, q_lines),
+            **(floor if label == "channel" else {})})
+        lib_out = torch.matmul(k_mat, q_lines).view(q.shape[0], 3, nq, nq,
+                                                    nq, 4)
+        parity("library call torch.matmul(K, u) vs plain",
+               lib_out.transpose(0, 1).contiguous(),
+               torch.stack(dg_derivative.dg_derivative3_plain(q, d)),
+               TOL["float32"])
+        bound = bound_ms(f"dg_derivative3 {label}",
+                         4 * nbytes(q) + nbytes(d),
+                         dg_derivative3_operations(q))
+        tiled, generic = ms["kernel"], ms["kernel generic"]
+        print(f"  dg_derivative3 {label} ({card}): tiled instance "
+              f"{tiled:.7f} ms, generic {generic:.7f} ms ({generic / tiled:.3f}"
+              f"x); {100 * bound[0] / tiled:.3f}% of the bound's speed "
+              f"({bound[0]:.7f} ms by {bound[1]}), generic "
+              f"{100 * bound[0] / generic:.3f}%; torch.matmul(K, u) "
+              f"{ms['library']:.7f} ms ({ms['library'] / tiled:.3f}x)"
+              + (f"; the launch floor {ms['launch floor']:.7f} ms, tiled "
+                 f"{tiled - ms['launch floor']:.7f} ms above it"
+                 if "launch floor" in ms else ""))
+        if label == "channel":
+            record["dg_derivative3"] = dict(
+                ms=ms, call_ms=call_ms, library_ms=ms["library"],
+                bound=bound)
+        else:
+            dg_extra["n6_b1024"] = {
+                "ms": tiled, "call_ms": call_ms["kernel"],
+                "generic_ms": generic,
+                "generic_call_ms": call_ms["kernel generic"],
+                "plain_ms": ms["plain"], "library_ms": ms["library"],
+                "bound_ms": bound[0], "bound_by": bound[1]}
+    record["dg_derivative3"]["extra"] = dg_extra
+    # a bf16 call with the bf16 D of a bf16 rollout launches the tiled
+    # kernel alone: no cast of D
+    q16, d16 = q_chan.to(torch.bfloat16), chan_ops["D"].to(torch.bfloat16)
+    names = [r[2] for r in trace_kernels(
+        lambda: dg_derivative.dg_derivative3(q16, d16))]
+    print(f"dg_derivative3 bf16 call with a bf16 D, device kernels in its "
+          f"trace: {names}")
+    if not names or any("dg_derivative3_tiled_kernel" not in n_
+                        for n_ in names):
+        raise AssertionError(f"the bf16 dg_derivative3 call launched "
+                             f"{names}, not the tiled kernel alone")
 
-    grad = torch.randn((p_nodes, 3, 3), generator=gen).to(dev)
-    cs = torch.full((p_nodes,), chan.cs_sgs, device=dev)
+    # smagorinsky_nut as kernel_grad_nut calls it, on the velocity rows of a
+    # (..., 4, 3) gradient, at the path's P = 36,864 and at 6 x that; beside
+    # the kernel on a contiguous (P, 3, 3) and PR 16's call (a copy of the
+    # rows, then the kernel)
     delta = chan.delta_filter
-    print(f"time per call ({card}), smagorinsky_nut P={p_nodes} float32:")
-    ms, call_ms = time_calls({
-        "plain": lambda: smagorinsky.smagorinsky_nut_plain(grad, cs, delta),
-        "kernel": lambda: smagorinsky.smagorinsky_nut(grad, cs, delta)})
-    print("  library call: none, no single PyTorch call computes nu_t")
-    nu_t = smagorinsky.smagorinsky_nut(grad, cs, delta)
-    record["smagorinsky_nut"] = dict(
-        ms=ms, call_ms=call_ms, library_ms=None,
-        bound=bound_ms("smagorinsky_nut", nbytes(grad, cs, nu_t),
-                       smagorinsky_operations(p_nodes)))
+    smag = smagorinsky.smagorinsky_nut
+    for reps in (1, 6):
+        grad_prim = torch.randn((16 * reps,) + chan_bank.shape[1:-1] + (4, 3),
+                                generator=gen).to(dev)
+        cs_nodes = torch.full(grad_prim.shape[:-2], chan.cs_sgs, device=dev)
+        view = grad_prim[..., 0:3, :].reshape((-1, 3, 3))
+        cs = cs_nodes.reshape(-1)
+        grad = view.contiguous()
+        p_pts = view.shape[0]
+        print(f"time per call ({card}), smagorinsky_nut P={p_pts} float32, "
+              f"grad_v strides {view.stride()}:")
+        ms, call_ms = time_calls({
+            "plain": functools.partial(smagorinsky.smagorinsky_nut_plain,
+                                       view, cs, delta),
+            "kernel": functools.partial(smag, view, cs, delta),
+            "kernel contiguous": functools.partial(smag, grad, cs, delta),
+            "copy + kernel": lambda: smag(view.contiguous(), cs, delta),
+            **(floor if reps == 1 else {})})
+        print("  library call: none, no single PyTorch call computes nu_t")
+        nu_t = smag(view, cs, delta)
+        bound = bound_ms(f"smagorinsky_nut P={p_pts}", nbytes(grad, cs, nu_t),
+                         smagorinsky_operations(p_pts))
+        kern = ms["kernel"]
+        print(f"  smagorinsky_nut P={p_pts} ({card}): on the view "
+              f"{kern:.7f} ms, on a contiguous copy "
+              f"{ms['kernel contiguous']:.7f} ms "
+              f"({ms['kernel contiguous'] / kern:.3f}x), copy + kernel "
+              f"{ms['copy + kernel']:.7f} ms; {100 * bound[0] / kern:.3f}% "
+              f"of the bound's speed ({bound[0]:.7f} ms by {bound[1]})"
+              + (f"; the launch floor {ms['launch floor']:.7f} ms, the kernel "
+                 f"{kern - ms['launch floor']:.7f} ms above it"
+                 if "launch floor" in ms else ""))
+        if reps == 1:
+            record["smagorinsky_nut"] = dict(
+                ms=ms, call_ms=call_ms, library_ms=None, bound=bound,
+                extra={})
+            # the caller's call launches the kernel alone: no copy
+            names = [r[2] for r in trace_kernels(
+                lambda: smag(grad_prim[..., 0:3, :].reshape((-1, 3, 3)),
+                             cs_nodes.reshape(-1), delta))]
+            print(f"smagorinsky_nut as kernel_grad_nut calls it, device "
+                  f"kernels in its trace: {names}")
+            if not names or any("smagorinsky_kernel" not in n_
+                                for n_ in names):
+                raise AssertionError(f"the smagorinsky_nut call launched "
+                                     f"{names}, not its kernel alone")
+        else:
+            record["smagorinsky_nut"]["extra"][f"p{p_pts}"] = {
+                "ms": kern, "call_ms": call_ms["kernel"],
+                "contiguous_ms": ms["kernel contiguous"],
+                "copy_and_kernel_ms": ms["copy + kernel"],
+                "plain_ms": ms["plain"], "bound_ms": bound[0],
+                "bound_by": bound[1]}
+    smag_ms = record["smagorinsky_nut"]["ms"]
+    record["smagorinsky_nut"]["extra"].update(
+        contiguous_ms=smag_ms["kernel contiguous"],
+        copy_and_kernel_ms=smag_ms["copy + kernel"])
+    for name in ("dg_derivative3", "smagorinsky_nut"):
+        record[name]["extra"]["launch_floor_ms"] = \
+            record[name]["ms"]["launch floor"]
 
     # both walls' matching points in one batch, as `wall_fluxes` hands them
     # (P = 2 x 2,304), and the bottom wall's alone (the former call per wall)
@@ -926,6 +1118,7 @@ def main() -> int:
                                  "ms": ms["kernel one wall"],
                                  "call_ms": call_ms["kernel one wall"],
                                  "bound_ms": bound_one[0]}})
+    elapsed("phase 4: LM kernels")
     # the LM kernels at hymba's prefill of 4 x 2,048 tokens, bf16 as served
     b, hq, hkv, sq = 4, lm_cfg.n_heads, lm_cfg.kv_heads, 2048
     d, win, bf16 = lm_cfg.hd, lm_cfg.window, torch.bfloat16
@@ -936,15 +1129,8 @@ def main() -> int:
     ones = torch.ones((sq, sq), dtype=torch.bool, device=dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # what the bf16 call launches on the card: the tensor-core kernel alone
-    # (50 calls in a window, as `device_ms` traces them: windows of 5 once
-    # showed no kernel three times; a window the profiler dropped is traced
-    # again)
-    for _ in range(3):
-        _, rows = traced(lambda: [flash_attention.flash_attention(
-            q, k, v, window=win) for _ in range(50)])
-        if rows:
-            break
-    names = [r[2] for r in rows]
+    names = [r[2] for r in trace_kernels(
+        lambda: flash_attention.flash_attention(q, k, v, window=win))]
     print(f"flash_attention bf16 call, device kernels in its trace: {names}")
     if not names or any("flash_attention_tc_kernel" not in n_ for n_ in names):
         raise AssertionError(f"the bf16 flash_attention call launched "
@@ -1034,6 +1220,7 @@ def main() -> int:
               f"{100 * b / rec['ms']['kernel']:.3f}% of the bound's speed")
 
     # --- 5. the three paths, each with every count set to 0 just before it --
+    elapsed("phase 5: hit_les_24dof")
     counters = [rhs.fused_navier_stokes_rhs, dg_derivative.dg_derivative3,
                 smagorinsky.smagorinsky_nut, wall_model.wall_model_tau,
                 flash_attention.flash_attention, linear_scan.linear_scan]
@@ -1060,6 +1247,7 @@ def main() -> int:
                              f"kernel")
     launches["fused_navier_stokes_rhs"] = counts[0]
 
+    elapsed("phase 5: channel_wm")
     chan_iter = 1
     rhs_calls = (chan_iter + 1) * chan.n_actions * chan.n_substeps * 5
     if rhs_calls != 2 * 20 * 26 * 5:
@@ -1073,7 +1261,15 @@ def main() -> int:
         raise AssertionError(f"channel path launches {counts}, expected "
                              f"{chan_expected}")
     launches.update(zip(names[1:4], counts[1:4]))
+    dg_split = dict(dg_derivative.dg_derivative3.instance_launches)
+    print(f"main path channel_wm: dg_derivative3 launches by instance "
+          f"{dg_split}")
+    if dg_split != {"tiled": rhs_calls, "generic": 0}:
+        raise AssertionError(f"channel path dg_derivative3 instances "
+                             f"{dg_split}, expected all {rhs_calls} on the "
+                             f"tiled kernel")
 
+    elapsed("phase 5: hymba-1.5b serving")
     # hymba-1.5b serving: bf16 weights from a seed (cast once, as served),
     # two request batches through lm.greedy_generate, 32 new tokens each
     serve_cfg = dataclasses.replace(lm_cfg, param_dtype="bfloat16")
@@ -1179,6 +1375,7 @@ def main() -> int:
         launches[f"linear_scan {kind}"] = n_
 
     # --- 5b. where the paths' time goes (after the counts were read) ---------
+    elapsed("phase 5b: profile windows")
     runner = Runner(env, FleetConfig(n_envs=16, bank_size=17), device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     traj = runner.orch.sample_fleet(runner.policy, gen)
@@ -1204,7 +1401,8 @@ def main() -> int:
         per_step = chan.n_substeps * 5
         print(f"  channel_wm: {chan_launches} launches in the trace over "
               f"{per_step} RHS calls, {chan_launches / per_step:.1f} per RHS "
-              f"(the profiler may drop a few)")
+              f"(the profiler may drop a few; PR 16: 675.5, with a copy of "
+              f"the gradient's rows before each smagorinsky_nut)")
     prompt = lm_batch(3, 4, 2048, lm_cfg.vocab)["tokens"].to(dev)
     profile_window("one hymba-1.5b prefill of 4 x 2048 tokens (api.prefill)",
                    lambda: api.prefill(params, serve_cfg, {"tokens": prompt},
@@ -1218,8 +1416,10 @@ def main() -> int:
                    card)
 
     # --- 6. records ----------------------------------------------------------
+    elapsed("phase 6: records")
     sources = {"fused_navier_stokes_rhs": ("ns_rhs_cluster.cu", "rhs.py:52"),
-               "dg_derivative3": ("dg_derivative.cu", "dg_derivative.py:60"),
+               "dg_derivative3": ("dg_derivative_tiled.cu",
+                                  "dg_derivative.py:60"),
                "smagorinsky_nut": ("smagorinsky.cu", "smagorinsky.py:46"),
                "wall_model_tau": ("wall_model.cu", "wall_model.py:46"),
                "flash_attention": ("flash_attention_tc.cu",
@@ -1227,6 +1427,16 @@ def main() -> int:
                "linear_scan chunked": ("linear_scan_chunked.cu",
                                        "linear_scan.py:105"),
                "linear_scan step": ("linear_scan.cu", "linear_scan.py:105")}
+    # dg_derivative3: the main path's tiled instance; the generic instance
+    # (n > 8) beside it, timed at the same shapes
+    errs["dg_derivative3"] = errs["dg_derivative3 tiled"]
+    rec = record["dg_derivative3"]
+    rec["extra"]["generic_instance"] = {
+        "source": "src/repro_torch/kernels/csrc/dg_derivative.cu",
+        "launches": dg_split["generic"],
+        "max_abs_err": errs["dg_derivative3 generic"],
+        "ms": rec["ms"]["kernel generic"],
+        "call_ms": rec["call_ms"]["kernel generic"]}
     # flash attention: the main path's bf16 tensor-core instance; the
     # float32 CUDA-core instance beside it
     errs["flash_attention"] = errs["flash_attention bfloat16"]

@@ -151,10 +151,11 @@ def kernel_grad_nut(q_prim: torch.Tensor, cs_nodes: torch.Tensor,
     vol_derivs = tuple(v.reshape(q_prim.shape) for v in vols)
     grad_prim = dgsem.dg_gradient(q_prim, dg, d_matrix, inv_w_end,
                                   vol_derivs=vol_derivs, jac=jac, bc=bc)
-    # the velocity rows are a strided view of the (..., 4, 3) gradient
+    # the velocity rows, a view of the (..., 4, 3) gradient with a point
+    # stride of 12 values, which the kernel reads in place
     nu_t = smagorinsky.smagorinsky_nut(
-        grad_prim[..., 0:3, :].reshape((-1, 3, 3)).contiguous(),
-        cs_nodes.reshape(-1).contiguous(), delta).reshape(cs_nodes.shape)
+        grad_prim[..., 0:3, :].reshape((-1, 3, 3)), cs_nodes.reshape(-1),
+        delta).reshape(cs_nodes.shape)
     return grad_prim, nu_t
 
 

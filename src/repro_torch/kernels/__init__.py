@@ -4,8 +4,10 @@
                  cluster launch per call; csrc/ns_rhs.cu, two passes, for
                  meshes beyond a 16-CTA cluster), replacing the Pallas kernel
                  `repro/kernels/rhs.py:fused_navier_stokes_rhs`
-  dg_derivative  three-direction volume derivative (csrc/dg_derivative.cu),
-                 replacing `repro/kernels/dg_derivative.py:dg_derivative3`
+  dg_derivative  three-direction volume derivative (csrc/dg_derivative_tiled.cu,
+                 specialised on n for 2 <= n <= 8; csrc/dg_derivative.cu for
+                 other n), replacing
+                 `repro/kernels/dg_derivative.py:dg_derivative3`
   smagorinsky    eddy viscosity (csrc/smagorinsky.cu), replacing
                  `repro/kernels/smagorinsky.py:smagorinsky_nut`
   wall_model     Reichardt wall-stress inversion (csrc/wall_model.cu),

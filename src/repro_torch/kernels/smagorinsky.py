@@ -20,21 +20,33 @@ from ..cfd import equations
 from . import _build
 
 _SOURCE = "smagorinsky.cu"
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
 
 
 def smagorinsky_nut_plain(grad_v: torch.Tensor, cs: torch.Tensor,
                           delta: float) -> torch.Tensor:
     """grad_v (P, 3, 3) with grad_v[p, i, j] = d v_i / d x_j, cs (P,) ->
-    nu_t (P,): float32 math, the result in grad_v's dtype."""
+    nu_t (P,): float32 math, the result in grad_v's dtype.  Any views."""
     f32 = torch.float32
     s_mag = equations.strain_magnitude(equations.strain_rate(grad_v.to(f32)))
     return equations.eddy_viscosity(cs.to(f32), delta, s_mag).to(grad_v.dtype)
 
 
+def _strides(grad_v: torch.Tensor, cs: torch.Tensor) -> tuple[int, int]:
+    """(s_p, s_c), the point strides the kernel is handed; a single point
+    has no stride of its own, and reads as a (3, 3) block."""
+    if grad_v.shape[0] <= 1:
+        return 9, 0
+    return grad_v.stride(0), cs.stride(0)
+
+
 def _check_inputs(grad_v: torch.Tensor, cs: torch.Tensor) -> None:
-    """Raise on anything the kernel does not take."""
+    """Raise on anything the kernel does not take.  grad_v is any (P, 3, 3)
+    view with strides (s_p, 3, 1), s_p >= 9 (e.g. the velocity rows of a
+    (P, 4, 3) gradient, s_p = 12); cs any (P,) view (stride 0 included) of
+    grad_v's dtype."""
     if grad_v.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"Smagorinsky kernel takes float32 or bfloat16, "
                         f"got {grad_v.dtype}")
@@ -46,15 +58,16 @@ def _check_inputs(grad_v: torch.Tensor, cs: torch.Tensor) -> None:
                          f"got {tuple(cs.shape)} {cs.dtype}")
     if cs.device != grad_v.device:
         raise ValueError(f"cs is on {cs.device}, grad_v on {grad_v.device}")
-    if not (grad_v.is_contiguous() and cs.is_contiguous()):
-        raise ValueError("grad_v and cs must be contiguous")
+    if grad_v.stride()[1:] != (3, 1) or _strides(grad_v, cs)[0] < 9:
+        raise ValueError(f"grad_v must have strides (s_p, 3, 1) with "
+                         f"s_p >= 9, got {grad_v.stride()}")
 
 
 def smagorinsky_nut(grad_v: torch.Tensor, cs: torch.Tensor,
                     delta: float) -> torch.Tensor:
-    """nu_t for point-flattened inputs; same contract as the plain version.
-    A strided view (e.g. the velocity rows of a (P, 4, 3) gradient) raises
-    for a CUDA tensor: the caller copies with `.contiguous()`."""
+    """nu_t for point-flattened inputs; same contract as the plain version,
+    except that a CUDA grad_v must be laid out as `_check_inputs` says (the
+    velocity rows of a (P, 4, 3) gradient are read in place, no copy)."""
     if grad_v.device.type == "cpu":
         return smagorinsky_nut_plain(grad_v, cs, delta)
     if grad_v.device.type != "cuda":
@@ -64,10 +77,12 @@ def smagorinsky_nut(grad_v: torch.Tensor, cs: torch.Tensor,
                       device=grad_v.device)
     if out.numel() == 0:
         return out
+    s_p, s_c = _strides(grad_v, cs)
     stream = torch.cuda.current_stream(grad_v.device).cuda_stream
     _build.launcher(_SOURCE, "smagorinsky", _ARGTYPES)(
-        grad_v.data_ptr(), cs.data_ptr(), out.data_ptr(), out.numel(),
-        int(grad_v.dtype == torch.bfloat16), float(delta), stream)
+        grad_v.data_ptr(), s_p, cs.data_ptr(), s_c, out.data_ptr(),
+        out.numel(), int(grad_v.dtype == torch.bfloat16), float(delta),
+        stream)
     smagorinsky_nut.launches += 1
     return out
 

@@ -250,6 +250,62 @@ def test_kernel_path_calls_each_component_kernel(rhs_inputs, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_path_hands_the_kernels_views_without_copies(rhs_inputs,
+                                                            monkeypatch,
+                                                            dtype):
+    """Per RHS, smagorinsky_nut reads the velocity rows of the gradient that
+    `dg_gradient` returned in place: a non-contiguous (P, 3, 3) view (point
+    stride 12) of the same storage, which the CUDA wrapper's checks take,
+    and C_s as a view too; dg_derivative3 gets D in the state's dtype as the
+    rollout holds it (bf16 in bf16 rollouts: no cast on the kernel path) and
+    the tiled instance is picked.  The RHS is the same as with copies."""
+    seen = {}
+    dg_gradient = solver.dgsem.dg_gradient
+    smag, dg3 = smagorinsky.smagorinsky_nut, dg_derivative.dg_derivative3
+
+    def grad_spy(*a, **k):
+        seen["grad_prim"] = dg_gradient(*a, **k)
+        return seen["grad_prim"]
+
+    def smag_spy(grad_v, cs, delta):
+        smagorinsky._check_inputs(grad_v, cs)
+        seen["smag"] = (grad_v, cs)
+        return smag(grad_v, cs, delta)
+
+    def dg_spy(u, d):
+        dg_derivative._check_inputs(u, d)
+        seen["dg"] = (u, d)
+        return dg3(u, d)
+
+    monkeypatch.setattr(solver.dgsem, "dg_gradient", grad_spy)
+    monkeypatch.setattr(solver.smagorinsky, "smagorinsky_nut", smag_spy)
+    monkeypatch.setattr(solver.dg_derivative, "dg_derivative3", dg_spy)
+    tdt = getattr(torch, dtype)
+    u, sb, st = (torch.from_numpy(x).to(tdt) for x in rhs_inputs)
+    ops = REDUCED_CFG.operators()
+    ops = dict(ops, D=ops["D"].to(tdt), w=ops["w"].to(tdt))
+    got = tch.channel_rhs(u, sb, st, REDUCED_CFG, ops)
+
+    grad_v, cs = seen["smag"]
+    grad_prim = seen["grad_prim"]
+    assert not grad_v.is_contiguous() and grad_v.stride() == (12, 3, 1)
+    assert grad_v.untyped_storage().data_ptr() == \
+        grad_prim.untyped_storage().data_ptr()
+    assert grad_v.data_ptr() == grad_prim.data_ptr()
+    assert cs.stride() == (1,) and cs.shape == grad_v.shape[:1]
+    u_dg, d = seen["dg"]
+    assert d.dtype == tdt and d.data_ptr() == ops["D"].data_ptr()
+    assert dg_derivative.pick_instance(u_dg.shape[1], u_dg.shape[4],
+                                       u_dg.dtype) == "tiled"
+    # the same RHS as with the rows copied first, bit for bit
+    monkeypatch.setattr(solver.smagorinsky, "smagorinsky_nut",
+                        lambda g, c, dl: smag(g.contiguous(), c.contiguous(),
+                                              dl))
+    want = tch.channel_rhs(u, sb, st, REDUCED_CFG, ops)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", ["channel_wm_reduced",
                                   "channel_wm_hre_reduced"])
 @pytest.mark.parametrize("use_kernels", [True, False])

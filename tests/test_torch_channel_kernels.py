@@ -91,6 +91,27 @@ def test_smagorinsky_plain_matches_oracle_and_pallas(p, dtype):
            pallas_smag(g, cs, delta, interpret=True))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p", [1000, 2053])
+def test_smagorinsky_plain_on_gradient_rows_view_matches_oracle(p, dtype):
+    """The velocity rows of a (P, 4, 3) gradient, as the channel hands them
+    over (a view with point stride 12), against the JAX oracle on the
+    contiguous copy of the same rows: the pins above (measured as on the
+    contiguous input, the same float32 math on the same values)."""
+    rng = np.random.default_rng(p + 1)
+    full = 2.0 * rng.standard_normal((p, 4, 3)).astype(np.float32)
+    g, tg = _pair(full, dtype)
+    cs, tcs = _pair(rng.uniform(0.0, 0.5, p).astype(np.float32), dtype)
+    view = tg[:, 0:3, :]
+    assert view.stride() == (12, 3, 1) and not view.is_contiguous()
+    got = smagorinsky.smagorinsky_nut_plain(view, tcs, 0.0833)
+    assert got.shape == (p,) and got.dtype == tg.dtype
+    _close("smagorinsky_nut", dtype, got,
+           ref.smagorinsky_nut(g[:, 0:3, :], cs, 0.0833))
+    torch.testing.assert_close(got, smagorinsky.smagorinsky_nut_plain(
+        view.contiguous(), tcs, 0.0833), rtol=0, atol=0)
+
+
 # --- wall_model_tau ---------------------------------------------------------
 REGIMES = {
     # viscous sublayer: y+ < 1, the inversion is the laminar stress
@@ -213,15 +234,101 @@ def test_smagorinsky_input_checks_raise():
     g = torch.zeros((10, 4, 3))
     cs = torch.zeros(10)
     smagorinsky._check_inputs(g[:, :3].contiguous(), cs)
-    with pytest.raises(ValueError, match="contiguous"):
-        # the velocity rows of a (P, 4, 3) gradient are a strided view
-        smagorinsky._check_inputs(g[:, :3], cs)
+    # the velocity rows of a (P, 4, 3) gradient, read in place
+    smagorinsky._check_inputs(g[:, :3], cs)
+    with pytest.raises(ValueError, match="strides"):
+        # rows of 3 no longer contiguous: the kernel would read g transposed
+        smagorinsky._check_inputs(g[:, :3].transpose(1, 2), cs)
     with pytest.raises(TypeError):
         smagorinsky._check_inputs(g[:, :3].contiguous().double(), cs)
     with pytest.raises(ValueError, match=r"\(P, 3, 3\)"):
         smagorinsky._check_inputs(g, cs)
     with pytest.raises(ValueError, match="cs must be"):
         smagorinsky._check_inputs(g[:, :3].contiguous(), cs[:9])
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "rows of (P, 4, 3)",
+                                    "offset rows", "stride-0 cs",
+                                    "one point"])
+def test_smagorinsky_checks_take_views_and_hand_over_their_strides(layout):
+    """What the kernel is handed for each view it takes: (s_p, s_c) in
+    values, read in place (no copy)."""
+    buf = torch.zeros(12 * 20 + 9)
+    cs = torch.zeros(20)
+    g, want = {
+        "contiguous": (buf[:180].view(20, 3, 3), (9, 1)),
+        "rows of (P, 4, 3)": (buf[:240].view(20, 4, 3)[:, :3], (12, 1)),
+        "offset rows": (buf[9:249].view(20, 4, 3)[:, :3], (12, 1)),
+        "stride-0 cs": (buf[:240].view(20, 4, 3)[:, :3], (12, 0)),
+        "one point": (buf[12:24].view(1, 4, 3)[:, :3], (9, 0)),
+    }[layout]
+    if layout == "stride-0 cs":
+        cs = torch.full((), 0.17).expand(20)
+    cs = cs[:g.shape[0]]
+    smagorinsky._check_inputs(g, cs)
+    assert smagorinsky._strides(g, cs) == want
+    assert g.untyped_storage().data_ptr() == buf.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("strides", [(12, 1, 3), (6, 3, 1), (9, 1, 3)])
+def test_smagorinsky_checks_raise_on_layouts_the_kernel_cannot_read(strides):
+    """Rows of 3 must be contiguous and points must not overlap."""
+    g = torch.zeros(400).as_strided((20, 3, 3), strides)
+    with pytest.raises(ValueError, match="strides"):
+        smagorinsky._check_inputs(g, torch.zeros(20))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16])
+def test_dg_derivative3_pick_instance(n):
+    """"tiled" for n = 2..8 (the channel's 4, HIT's 6, 32-DOF's 8) in both
+    dtypes at the paths' C = 4 and 5; "generic" for n = 1 and above 8."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in (1, 4, 5):
+            want = "tiled" if 2 <= n <= 8 else "generic"
+            assert dg_derivative.pick_instance(n, c, dtype) == want
+
+
+def test_dg_derivative3_pick_instance_at_the_shared_memory_edge():
+    """The tiled instance keeps two element buffers and D in one block's
+    227 KB and takes C <= 64; beyond either the generic instance (one
+    element buffer) takes the shape, whenever `_check_inputs` does."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert dg_derivative.pick_instance(8, 56, f32) == "tiled"     # 229,632 B
+    assert dg_derivative.pick_instance(8, 57, f32) == "generic"   # 233,728 B
+    assert dg_derivative.pick_instance(8, 64, bf16) == "tiled"
+    assert dg_derivative.pick_instance(8, 65, bf16) == "generic"
+    assert dg_derivative.pick_instance(2, 65, f32) == "generic"
+    for n in range(2, 9):
+        for c in range(1, 120):
+            u = torch.zeros((1, n, n, n, c), device="meta")
+            try:
+                dg_derivative._check_inputs(u, torch.zeros((n, n),
+                                                           device="meta"))
+            except ValueError:
+                continue
+            if dg_derivative.pick_instance(n, c, f32) == "tiled":
+                assert 2 * 4 * n**3 * c + 4 * n * n <= dg_derivative.SMEM_BYTES
+
+
+def test_dg_derivative3_tiled_range_mirrors_its_source():
+    """`pick_instance` sends the tiled kernel only shapes its source was
+    built for: the n of its switch and C up to its kMaxC."""
+    import pathlib
+    import re
+    src = (pathlib.Path(dg_derivative.__file__).parent / "csrc"
+           / dg_derivative.SOURCES["tiled"]).read_text()
+    cases = {int(x) for x in re.findall(r"DG_N\((\d+)\);", src)}
+    assert cases == set(dg_derivative.TILED_N)
+    assert int(re.search(r"kMaxC = (\d+);", src).group(1)) == \
+        dg_derivative.TILED_MAX_C
+
+
+def test_dg_derivative3_checks_take_a_bf16_d():
+    """The bf16 rollouts hand over a bf16 D; the tiled kernel reads it as
+    stored."""
+    u = torch.zeros((2, 4, 4, 4, 4), dtype=torch.bfloat16)
+    for d_dtype in (torch.bfloat16, torch.float32):
+        dg_derivative._check_inputs(u, torch.zeros((4, 4), dtype=d_dtype))
 
 
 def test_wall_model_input_checks_raise():
@@ -267,11 +374,77 @@ def test_cuda_dg_derivative3_matches_plain(dtype):
     d = torch.from_numpy(gll.lagrange_derivative_matrix(3).astype(
         np.float32)).to("cuda")
     before = dg_derivative.dg_derivative3.launches
+    tiled = dg_derivative.dg_derivative3.instance_launches["tiled"]
     got = dg_derivative.dg_derivative3(u, d)
     torch.cuda.synchronize()
     assert dg_derivative.dg_derivative3.launches == before + 1
+    assert dg_derivative.dg_derivative3.instance_launches["tiled"] == tiled + 1
     for g, w in zip(got, dg_derivative.dg_derivative3_plain(u, d)):
         assert _rel(g, w) <= {"float32": 1e-4, "bfloat16": 4e-2}[dtype]
+
+
+def _dg_case(rng, b, n, c, dtype):
+    """u (b, n, n, n, c) and D of n nodes, both in `dtype` on the card (the
+    bf16 rollouts hand over a bf16 D)."""
+    tdt = getattr(torch, dtype)
+    u = torch.from_numpy(rng.standard_normal((b, n, n, n, c)).astype(
+        np.float32)).to("cuda", tdt)
+    d = torch.from_numpy(gll.lagrange_derivative_matrix(n - 1).astype(
+        np.float32)).to("cuda", tdt)
+    return u, d
+
+
+def _dg_instance_matches_plain(u, d, kind, dtype):
+    fn = dg_derivative.dg_derivative3
+    before, by_kind = fn.launches, dict(fn.instance_launches)
+    got = fn(u, d, instance=kind)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert fn.instance_launches == dict(by_kind, **{kind: by_kind[kind] + 1})
+    for g, w in zip(got, dg_derivative.dg_derivative3_plain(u, d)):
+        assert g.dtype == u.dtype and g.shape == u.shape
+        assert _rel(g, w) <= {"float32": 1e-4, "bfloat16": 4e-2}[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 6, 7, 8])
+def test_cuda_dg_derivative3_tiled_matches_plain(n, c, dtype):
+    """Every n the tiled instance is built for, each channel width (pieces
+    of 4, 2 and 1 values), ragged batches of 1 and 577 elements (a partial
+    last tile), within chip_smoke.py's tolerances."""
+    _need_gpu()
+    assert dg_derivative.pick_instance(n, c, getattr(torch, dtype)) == "tiled"
+    rng = np.random.default_rng(100 * n + c)
+    for b in (1, 577):
+        _dg_instance_matches_plain(*_dg_case(rng, b, n, c, dtype), "tiled",
+                                   dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_dg_derivative3_tiled_takes_many_tiles_a_block(dtype):
+    """More elements than the card holds blocks at once: each block walks
+    over tiles through its two buffers (HIT's n = 6, 100,000 elements)."""
+    _need_gpu()
+    rng = np.random.default_rng(7)
+    _dg_instance_matches_plain(*_dg_case(rng, 100_000, 6, 4, dtype), "tiled",
+                               dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c", [(9, 4), (4, 4)])
+def test_cuda_dg_derivative3_generic_matches_plain(n, c, dtype):
+    """The generic instance: the rule's pick at n = 9, and forced at the
+    channel's n = 4 (as chip_smoke.py times it)."""
+    _need_gpu()
+    rng = np.random.default_rng(n)
+    u, d = _dg_case(rng, 577, n, c, dtype)
+    if n == 9:
+        assert dg_derivative.pick_instance(n, c, u.dtype) == "generic"
+    _dg_instance_matches_plain(u, d, "generic", dtype)
 
 
 @pytest.mark.cuda
@@ -290,6 +463,38 @@ def test_cuda_smagorinsky_matches_plain(dtype):
     assert smagorinsky.smagorinsky_nut.launches == before + 1
     assert _rel(got, smagorinsky.smagorinsky_nut_plain(g, cs, 0.0833)) <= \
         CARD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["rows of (P, 4, 3)", "offset rows",
+                                    "unaligned rows", "stride-0 cs",
+                                    "wide stride"])
+@pytest.mark.parametrize("p", [16 * 2304, 1007])
+def test_cuda_smagorinsky_reads_views_in_place(p, layout, dtype):
+    """The velocity rows of a (P, 4, 3) gradient (s_p = 12, 16-byte aligned:
+    staged), the same rows one point into a larger buffer (48 bytes: still
+    aligned in float32, not in bf16), offset by 9 values (not 16-byte
+    aligned: read value by value), with a stride-0 C_s, and with a point
+    stride of 60 (more than the kernel stages); P of the channel path and a
+    ragged one."""
+    _need_gpu()
+    rng = np.random.default_rng(p)
+    tdt = getattr(torch, dtype)
+    offset, s_p = {"offset rows": (12, 12), "unaligned rows": (9, 12),
+                   "wide stride": (0, 60)}.get(layout, (0, 12))
+    buf = torch.from_numpy(rng.standard_normal(offset + p * s_p).astype(
+        np.float32)).to("cuda", tdt)
+    g = buf[offset:].view(p, s_p // 3, 3)[:, :3]
+    cs = (torch.full((), 0.17, dtype=tdt, device="cuda").expand(p)
+          if layout == "stride-0 cs" else torch.from_numpy(
+              rng.uniform(0.0, 0.5, p).astype(np.float32)).to("cuda", tdt))
+    before = smagorinsky.smagorinsky_nut.launches
+    got = smagorinsky.smagorinsky_nut(g, cs, 0.0833)
+    torch.cuda.synchronize()
+    assert smagorinsky.smagorinsky_nut.launches == before + 1
+    assert _rel(got, smagorinsky.smagorinsky_nut_plain(
+        g.contiguous(), cs.contiguous(), 0.0833)) <= CARD_TOL[dtype]
 
 
 @pytest.mark.cuda

@@ -23,9 +23,11 @@ In order, and any failure exits non-zero:
      prefills;
   3. holds each kernel to its plain PyTorch version on the card, in float32
      and bfloat16: the fused RHS, both instances, on synthetic and real HIT
-     states (24-DOF, 32-DOF, n=3 K=3, a non-cubic mesh), the cluster
+     states (24-DOF at 16 envs and at the fleet's 8, 32-DOF, n=3 K=3, a
+     non-cubic mesh), the cluster
      instance also bit for bit against itself; the three
-     channel kernels at the channel path's shapes and beyond
+     channel kernels at the channel path's shapes (16 envs), the fleet's
+     channel sub-fleet's (8 envs) and beyond
      (dg_derivative3 on both instances, the tiled one at every n from 2 to
      8 and C from 1 to 5; smagorinsky_nut on the strided views it reads in
      place, aligned or not, and a stride-0 C_s); flash
@@ -60,15 +62,32 @@ In order, and any failure exits non-zero:
      and the device kernels of a bf16 dg_derivative3 call with a bf16 D
      and of smagorinsky_nut as the channel calls it (each its kernel
      alone: no cast, no copy);
-  5. drives the three paths through their entry points, each with every
+  5. drives the four paths through their entry points, each with every
      launch count set to 0 just before it and read just after:
      `hit_les_24dof` through `repro_torch.launch.rl_train` (2 PPO iterations
      + 1 evaluation, 16 envs) must launch the fused RHS exactly 3 episodes x
      50 steps x 13 substeps x 5 stages times, all on its cluster instance;
-     `channel_wm` (1 iteration + 1
+     `channel_wm` (1 iteration, no
      evaluation, 16 envs) must launch dg_derivative3, smagorinsky_nut and
-     wall_model_tau exactly 2 x 20 x 26 x 5 times each (the wall model once
+     wall_model_tau exactly 20 x 26 x 5 times each (the wall model once
      per RHS for both walls; dg_derivative3 all on its tiled instance);
+     the fleet `hit_les_24dof` + `channel_wm` + `burgers_96dof` through
+     `fleet.make_fleet_runner` (32 envs, at least 8 each: 8 / 8 / 16, one
+     shared multitask policy) trains one pipelined iteration (2 fleet
+     rollouts), one more pipelined iteration (1 rollout), then a second
+     runner one synchronous iteration (1 rollout, with t_sample_s and
+     t_update_s) followed by the evaluation episode of every scenario:
+     each fleet rollout or evaluation must launch the fused RHS
+     50 x 13 x 5 = 3,250 times (one launch per RK stage for all HIT envs,
+     all on the cluster instance) and each channel kernel
+     20 x 26 x 5 = 2,600 times (dg_derivative3 all tiled), with update_ok
+     1 and every scenario's return_norm and eval_return_norm in [-1, 1];
+     the env-steps the non-finite guard reverted are counted per
+     sub-fleet: none in the channel and Burgers rollouts, none in any
+     evaluation (the mean action), and the synchronous return no higher
+     than the reverted share allows (HIT's exploratory steps are reverted:
+     see PERF.md); then one RL step of each sub-fleet is timed, and the
+     channel's and Burgers' profiled for their launches per RHS;
      hymba-1.5b serving (bf16 weights from a seed,
      `lm.greedy_generate` of 32 new tokens for 4 prompts of 2,048 Zipf
      tokens, then for 4 of 700) must launch flash_attention 32 times, all on
@@ -78,7 +97,8 @@ In order, and any failure exits non-zero:
      profiles one RL step of each CFD path (the channel's launches per
      RHS), one HIT PPO epoch, one hymba prefill and one decode step
      (torch.profiler) to show where the time goes;
-  6. prints one JSON line per the kernels' record, then the last line
+  6. prints one JSON line per the kernels' record (`launches` summed over
+     the paths, `launches_by_path` beside it), then the last line
      `{"ok": true, "device": {...}}`.
 Each phase's start is printed with the run's time so far.
 
@@ -421,26 +441,34 @@ def parity(label: str, got, want, tol: float) -> float:
     return err
 
 
-def train(env_name: str, n_iter: int, counters: list) -> tuple:
-    """`rl_train` on `env_name` with 16 envs, `n_iter` PPO iterations and an
-    evaluation after the last; every counter in `counters` (and its counts
-    by instance) is set to 0 just before and read just after.  Returns
-    (history, launches, wall s, checkpoint step), after checking returns and
-    the checkpoint."""
+def zero_counts(counters: list) -> None:
+    """Set every launch count of `counters` (and its counts by instance)
+    to 0."""
+    for fn in counters:
+        fn.launches = 0
+        for key in getattr(fn, "instance_launches", {}):
+            fn.instance_launches[key] = 0
+
+
+def train(env_name: str, n_iter: int, counters: list,
+          evaluate: bool = True) -> tuple:
+    """`rl_train` on `env_name` with 16 envs, `n_iter` PPO iterations and,
+    if `evaluate`, an evaluation after the last; every counter in
+    `counters` (and its counts by instance) is set to 0 just before and read
+    just after.  Returns (history, launches, wall s, checkpoint step), after
+    checking returns and the checkpoint."""
     import torch
 
     from repro_torch.core import checkpoints
     from repro_torch.launch import rl_train
 
     with tempfile.TemporaryDirectory() as ckpt:
-        for fn in counters:
-            fn.launches = 0
-            for key in getattr(fn, "instance_launches", {}):
-                fn.instance_launches[key] = 0
+        zero_counts(counters)
         t0 = time.perf_counter()
         history = rl_train.main([
             "--env", env_name, "--n-envs", "16", "--iterations", str(n_iter),
-            "--eval-every", str(n_iter), "--checkpoint-dir", ckpt])
+            "--eval-every", str(n_iter if evaluate else n_iter + 1),
+            "--checkpoint-dir", ckpt])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = [fn.launches for fn in counters]
@@ -458,11 +486,220 @@ def train(env_name: str, n_iter: int, counters: list) -> tuple:
                                        if "eval_return_norm" in rec else ()):
             if not (math.isfinite(rec[key]) and -1.0 <= rec[key] <= 1.0):
                 raise AssertionError(f"{key}={rec[key]} not in [-1, 1]")
-    if "eval_return_norm" not in history[-1]:
-        raise AssertionError("the evaluation episode did not run")
+    if evaluate != ("eval_return_norm" in history[-1]):
+        raise AssertionError(f"evaluation episode asked {evaluate}, run "
+                             f"{not evaluate}")
     if step != n_iter:
         raise AssertionError(f"no checkpoint of step {n_iter} (got {step})")
     return history, launches, wall, step
+
+
+class GuardReverts:
+    """An env seen through its `step`: counts on the device, by batch size,
+    the env-steps whose state comes back bit for bit unchanged, which are
+    the non-finite guard's reverts (a step that advances changes the
+    state).  Every other attribute is the env's."""
+
+    def __init__(self, env):
+        self.env = env
+        self.counts: dict = {}   # batch size -> [reverted (device), steps]
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+    def step(self, state, action):
+        import torch
+
+        res = self.env.step(state, action)
+        same = (res.state.u == state.u).flatten(1).all(1)
+        count = self.counts.setdefault(state.u.shape[0], [
+            torch.zeros((), dtype=torch.int64, device=state.u.device), 0])
+        count[0] += same.sum()
+        count[1] += same.numel()
+        return res
+
+    def read(self) -> dict:
+        """{batch size: (reverted, env-steps)}, then every count to 0."""
+        out = {b: (int(c[0]), c[1]) for b, c in self.counts.items()}
+        self.counts.clear()
+        return out
+
+
+def fleet_phase(counters: list, per_rollout: dict, card: str) -> tuple:
+    """The heterogeneous fleet through `fleet.make_fleet_runner` (device
+    None: the GPU): 32 envs apportioned by static step cost with at least 8
+    each, one shared multitask policy; one pipelined iteration (the
+    prologue rollout, then update 0 and rollout 1), one more pipelined
+    iteration alone (a rollout and an update), then one synchronous
+    iteration of a second runner for the timings, followed by every
+    scenario's evaluation episode.  Each call's launches must be
+    `per_rollout` times its fleet rollouts and evaluations; each
+    sub-fleet's guard reverts are counted (`GuardReverts`) and held.  Then
+    one RL step of each sub-fleet, timed alone, and the channel's and
+    Burgers' profiled.  Returns the launches summed over the calls, in the
+    order of `counters`."""
+    import torch
+
+    from repro_torch import envs, fleet
+    from repro_torch.fleet.pipeline import FleetRunnerConfig
+    from repro_torch.kernels import dg_derivative, rhs
+
+    names = [fn.__name__ for fn in counters]
+    dev = torch.device("cuda", 0)
+    fleet_names = ("hit_les_24dof", "channel_wm", "burgers_96dof")
+    fleet_launches = [0] * len(counters)
+    with tempfile.TemporaryDirectory() as ckpt:
+        for label, pipelined, n_iter, rollouts in (
+                ("pipelined, prologue + iteration 0", True, 1, 2),
+                ("pipelined, iteration 1", True, 2, 1),
+                ("synchronous, iteration 0 + evaluation", False, 1, 2)):
+            if label.startswith("pipelined, prologue") or not pipelined:
+                frunner = fleet.make_fleet_runner(
+                    fleet_names, total_envs=32, min_envs=8,
+                    run_cfg=FleetRunnerConfig(
+                        pipelined=pipelined,
+                        eval_every=10**6 if pipelined else 1,
+                        checkpoint_every=10**6,
+                        checkpoint_dir=os.path.join(ckpt, label[:4])))
+                split = [m.n_envs for m in frunner.schedule.members]
+                costs = [m.cost for m in frunner.schedule.members]
+                print(f"fleet schedule: {dict(zip(fleet_names, split))}, "
+                      f"static costs {costs}, on {frunner.device}")
+                if split != [8, 8, 16] or frunner.device.type != "cuda":
+                    raise AssertionError(f"fleet schedule {split} on "
+                                         f"{frunner.device}, expected "
+                                         f"[8, 8, 16] on the GPU")
+                for orch in frunner.forch.orchs.values():
+                    orch.env = GuardReverts(orch.env)
+            history, counts, wall = drive_fleet(frunner, n_iter, counters)
+            reverts = {n: frunner.forch.orchs[n].env.read()
+                       for n in fleet_names}
+            want = [rollouts * per_rollout["hit"]] + \
+                [rollouts * per_rollout["chan"]] * 3 + [0, 0]
+            want_split = ({"cluster": want[0], "two_pass": 0},
+                          {"tiled": want[1], "generic": 0})
+            split = (dict(rhs.fused_navier_stokes_rhs.instance_launches),
+                     dict(dg_derivative.dg_derivative3.instance_launches))
+            print(f"main path fleet {label}: {wall:.3f} s wall ({card}), "
+                  f"{rollouts} fleet rollout(s) or evaluation(s), launches "
+                  f"{dict(zip(names, counts))}; fused RHS by instance "
+                  f"{split[0]}, dg_derivative3 by instance {split[1]}")
+            if counts != want or split != want_split:
+                raise AssertionError(f"fleet {label}: launches {counts} "
+                                     f"{split}, expected {want} {want_split}")
+            (rec,) = history
+            for key in ("t_sample_s", "t_update_s"):
+                if key in rec:
+                    print(f"  {key}={rec[key]:.3f}")
+            print("  " + ", ".join(
+                f"{n}: return_norm={rec[f'{n}/return_norm']:.6f}"
+                for n in fleet_names) + f", update_ok={rec['update_ok']}")
+            print("  guard reverts {batch: (reverted, env-steps)}: "
+                  + ", ".join(f"{n} {reverts[n]}" for n in fleet_names))
+            if rec["update_ok"] != 1.0 or not all(
+                    math.isfinite(rec[f"{n}/return_norm"])
+                    and -1.0 <= rec[f"{n}/return_norm"] <= 1.0
+                    for n in fleet_names):
+                raise AssertionError(f"fleet {label}: {rec}")
+            if pipelined != ("t_sample_s" not in rec):
+                raise AssertionError(f"fleet {label}: timings {rec}")
+            check_reverts(label, frunner, rec, reverts, pipelined)
+            fleet_launches = [a + c for a, c in zip(fleet_launches, counts)]
+        for orch in frunner.forch.orchs.values():
+            orch.env = orch.env.env
+    # one RL step of each sub-fleet at its batch, timed alone; the channel
+    # and Burgers steps also profiled for their launches per RHS
+    for name, orch in frunner.forch.orchs.items():
+        n_envs = orch.fleet.n_envs
+        fstate = envs.init_state(orch.draw_initial_states(
+            torch.Generator(device=dev).manual_seed(9)), (n_envs,))
+        with torch.no_grad():
+            faction = frunner.policy.head(name).actor_mean(
+                orch.env.observe(fstate))
+        orch.env.step(fstate, faction)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orch.env.step(fstate, faction)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        n_rhs = orch.env.cfg.n_substeps * 5
+        print(f"fleet sub-fleet {name}: {n_envs} envs, one RL step "
+              f"({n_rhs} RHS calls) {step_ms:.3f} ms wall ({card}), "
+              f"{orch.env.n_actions} steps an episode")
+        if name != "hit_les_24dof":
+            got = profile_window(f"one {name} RL step of {n_envs} envs "
+                                 f"(fleet sub-fleet)",
+                                 lambda: orch.env.step(fstate, faction), card)
+            if got is not None:
+                print(f"  {name}: {got} launches in the trace over {n_rhs} "
+                      f"RHS calls, {got / n_rhs:.1f} per RHS (the profiler "
+                      f"may drop a few)")
+    return fleet_launches
+
+
+def check_reverts(label: str, frunner, rec: dict, reverts: dict,
+                  pipelined: bool) -> None:
+    """Hold one fleet call's guard reverts: every rollout of the channel
+    and Burgers sub-fleets and every evaluation episode (batch 1, the mean
+    action) advance on every step.  HIT's exploratory steps may be
+    reverted (the reward floor -1 each).  In the synchronous call, whose
+    record reports the rollout it counted, each sub-fleet's return_norm
+    can be at most 1 - 2 x its reverted share (reverted steps give -1,
+    the others at most 1)."""
+    for name, by_batch in reverts.items():
+        n_envs = frunner.forch.orchs[name].fleet.n_envs
+        reverted, steps = by_batch[n_envs]
+        if name != "hit_les_24dof" and reverted:
+            raise AssertionError(f"fleet {label}: {name} reverted "
+                                 f"{reverted} of {steps} env-steps")
+        if not pipelined:
+            cap = 1.0 - 2.0 * reverted / steps
+            if rec[f"{name}/return_norm"] > cap + 1e-6:
+                raise AssertionError(
+                    f"fleet {label}: {name} return_norm "
+                    f"{rec[f'{name}/return_norm']} above {cap}, the most "
+                    f"that {reverted} reverts of {steps} allow")
+            ev_reverted, ev_steps = by_batch[1]
+            n_actions = frunner.forch.orchs[name].env.n_actions
+            if ev_reverted or ev_steps != n_actions:
+                raise AssertionError(f"fleet {label}: {name} evaluation "
+                                     f"reverted {ev_reverted} of {ev_steps} "
+                                     f"steps")
+        elif set(by_batch) != {n_envs}:
+            raise AssertionError(f"fleet {label}: {name} batches "
+                                 f"{set(by_batch)}, no evaluation asked")
+    if not pipelined:
+        evals = read_evaluations(frunner)
+        print("  evaluation: " + ", ".join(
+            f"{n}: eval_return_norm={v:.6f}" for n, v in evals.items()))
+        if set(evals) != set(reverts) or not all(
+                math.isfinite(v) and -1.0 <= v <= 1.0
+                for v in evals.values()):
+            raise AssertionError(f"fleet {label}: evaluation {evals}")
+
+
+def read_evaluations(frunner) -> dict:
+    """{scenario: eval_return_norm} from the runner's metric log: the one
+    evaluation record of this call."""
+    with open(frunner.metrics_path) as f:
+        records = [json.loads(line) for line in f]
+    (rec,) = [r for r in records
+              if any(k.endswith("/eval_return_norm") for k in r)]
+    return {k.split("/")[0]: v for k, v in rec.items()
+            if k.endswith("/eval_return_norm")}
+
+
+def drive_fleet(runner, n_iter: int, counters: list) -> tuple:
+    """`runner.train(n_iter)` with every counter set to 0 just before and
+    read just after; returns (this call's records, launches, wall s)."""
+    import torch
+
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    history = runner.train(n_iter, resume=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return history, [fn.launches for fn in counters], wall
 
 
 def main() -> int:
@@ -479,13 +716,14 @@ def main() -> int:
     sys.path.insert(0, src)
     import repro_torch
     from repro_torch import configs as lm_configs
-    from repro_torch import envs
+    from repro_torch import envs, fleet
     from repro_torch.cfd import channel, equations, gll, initial
     from repro_torch.cfd.solver import HITConfig
     from repro_torch.configs import relexi_hit
     from repro_torch.core import ppo
     from repro_torch.core.orchestrator import FleetConfig
     from repro_torch.core.runner import Runner
+    from repro_torch.fleet.pipeline import FleetRunnerConfig
     from repro_torch.data import lm_batch
     from repro_torch.kernels import (_build, dg_derivative, flash_attention,
                                      linear_scan, rhs, smagorinsky,
@@ -603,7 +841,8 @@ def main() -> int:
              ("32-DOF", (4,), relexi_hit.HIT32, None),
              ("n_poly=2 K=3", (3,), HITConfig(n_poly=2, n_elem=3), None),
              ("32-DOF", (16,), relexi_hit.HIT32, None),
-             ("non-cubic 2x3x4", (2,), relexi_hit.HIT24, (2, 3, 4))]
+             ("non-cubic 2x3x4", (2,), relexi_hit.HIT24, (2, 3, 4)),
+             ("24-DOF", (8,), relexi_hit.HIT24, None)]  # the fleet's HIT
     states = [(name, synthetic_state(gen, prefix, cfg, dev, elems), cfg)
               for name, prefix, cfg, elems in cases]
     bank_gen = torch.Generator(device=dev).manual_seed(1)
@@ -643,7 +882,8 @@ def main() -> int:
                         and dtype == torch.float32:
                     errs[f"fused_navier_stokes_rhs {kind}"] = err
 
-    # the three channel kernels: the channel path's shapes first (16 envs)
+    # the three channel kernels: the channel path's shapes first (16 envs),
+    # then the fleet's channel sub-fleet (8 envs)
     elapsed("phase 3: channel kernels")
     chan = envs.make("channel_wm").cfg
     kx, ky, kz = chan.n_elem
@@ -661,6 +901,8 @@ def main() -> int:
         # C = 1..5 and ragged batches; the generic instance at n = 9.  D in
         # u's dtype, as the rollouts hand it over
         dg_cases = [("channel", 16 * kx * ky * kz, n, 4, ("tiled", "generic")),
+                    ("fleet channel", 8 * kx * ky * kz, n, 4,
+                     ("tiled", "generic")),
                     ("HIT n=6", 16 * 64, 6, 4, ("tiled", "generic")),
                     ("n=9", 577, 9, 4, ("generic",))]
         dg_cases += [(f"n={nn} C={c}", b, nn, c, ("tiled",))
@@ -688,8 +930,9 @@ def main() -> int:
         # gradient as the channel hands them over (s_p = 12), the same one
         # point (48 bytes) and 9 values (not 16-byte aligned) into a larger
         # buffer, with a stride-0 C_s, and a point stride of 60 (more than
-        # the kernel stages); P of the path and a ragged one
-        for p_pts in (p_nodes, 1007):
+        # the kernel stages); P of the channel path (16 envs), of the
+        # fleet's channel sub-fleet (8 envs) and a ragged one
+        for p_pts in (p_nodes, p_nodes // 2, 1007):
             for label, offset, s_p, cs_stride0 in (
                     ("contiguous", 0, 9, False),
                     ("rows of (P, 4, 3)", 0, 12, False),
@@ -1245,22 +1488,27 @@ def main() -> int:
         raise AssertionError(f"HIT path RHS instances {hit_instances}, "
                              f"expected all {expected} on the cluster "
                              f"kernel")
-    launches["fused_navier_stokes_rhs"] = counts[0]
+    # each kernel's launches by path: the record's `launches` is their sum
+    by_path = {"fused_navier_stokes_rhs": {"hit_les_24dof": counts[0]}}
 
     elapsed("phase 5: channel_wm")
+    # one iteration, no evaluation episode (the fleet phase below runs the
+    # channel again, and the run must stay well inside its time limit)
     chan_iter = 1
-    rhs_calls = (chan_iter + 1) * chan.n_actions * chan.n_substeps * 5
-    if rhs_calls != 2 * 20 * 26 * 5:
+    rhs_calls = chan_iter * chan.n_actions * chan.n_substeps * 5
+    if rhs_calls != 20 * 26 * 5:
         raise AssertionError(f"channel episode arithmetic gives {rhs_calls}")
     chan_expected = [0, rhs_calls, rhs_calls, rhs_calls, 0, 0]
-    _, counts, wall, step = train("channel_wm", chan_iter, counters)
+    _, counts, wall, step = train("channel_wm", chan_iter, counters,
+                                  evaluate=False)
     print(f"main path channel_wm: {wall:.2f} s wall, launches "
           f"{dict(zip(names, counts))} (expected "
           f"{dict(zip(names, chan_expected))}), checkpoint step {step}")
     if counts != chan_expected:
         raise AssertionError(f"channel path launches {counts}, expected "
                              f"{chan_expected}")
-    launches.update(zip(names[1:4], counts[1:4]))
+    for name, n_ in zip(names[1:4], counts[1:4]):
+        by_path[name] = {"channel_wm": n_}
     dg_split = dict(dg_derivative.dg_derivative3.instance_launches)
     print(f"main path channel_wm: dg_derivative3 launches by instance "
           f"{dg_split}")
@@ -1268,6 +1516,22 @@ def main() -> int:
         raise AssertionError(f"channel path dg_derivative3 instances "
                              f"{dg_split}, expected all {rhs_calls} on the "
                              f"tiled kernel")
+
+    elapsed("phase 5: fleet hit_les_24dof + channel_wm + burgers_96dof")
+    # the heterogeneous fleet through `fleet.make_fleet_runner` (device
+    # None: the GPU): 32 envs apportioned by static step cost with at
+    # least 8 each, one shared multitask policy; one pipelined iteration
+    # (the prologue rollout, then update 0 and rollout 1), one more
+    # pipelined iteration alone (a rollout and an update), then one
+    # synchronous iteration of a second runner for the timings and every
+    # scenario's evaluation episode
+    per_rollout = {"hit": cfg.n_actions * cfg.n_substeps * 5,
+                   "chan": chan.n_actions * chan.n_substeps * 5}
+    if per_rollout != {"hit": 3250, "chan": 2600}:
+        raise AssertionError(f"fleet episode arithmetic gives {per_rollout}")
+    fleet_launches = fleet_phase(counters, per_rollout, card)
+    for name, n_ in zip(names[:4], fleet_launches[:4]):
+        by_path[name]["fleet"] = n_
 
     elapsed("phase 5: hymba-1.5b serving")
     # hymba-1.5b serving: bf16 weights from a seed (cast once, as served),
@@ -1370,9 +1634,10 @@ def main() -> int:
     print(f"main path hymba-1.5b serving, both batches: flash_attention "
           f"launches by instance {flash_instances}, linear_scan launches "
           f"by instance {scan_instances}")
-    launches["flash_attention"] = lm_launches[4]
+    by_path["flash_attention"] = {"hymba-1.5b": lm_launches[4]}
     for kind, n_ in scan_instances.items():
-        launches[f"linear_scan {kind}"] = n_
+        by_path[f"linear_scan {kind}"] = {"hymba-1.5b": n_}
+    launches = {name: sum(p.values()) for name, p in by_path.items()}
 
     # --- 5b. where the paths' time goes (after the counts were read) ---------
     elapsed("phase 5b: profile windows")
@@ -1465,6 +1730,7 @@ def main() -> int:
         "source": f"src/repro_torch/kernels/csrc/{sources[name][0]}",
         "replaces": f"src/repro/kernels/{sources[name][1]}",
         "launches": launches[name],
+        "launches_by_path": by_path[name],
         "max_abs_err": errs[name],
         "ms": rec["ms"]["kernel"],
         "plain_ms": rec["ms"]["plain"],

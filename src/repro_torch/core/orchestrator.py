@@ -13,7 +13,7 @@ import dataclasses
 import torch
 
 from .. import resolve_device
-from ..envs.base import Env
+from ..envs.base import Env, as_env
 from . import policy as policy_lib
 from . import ppo as ppo_lib
 from . import rollout as rollout_lib
@@ -26,11 +26,16 @@ class FleetConfig:
 
 
 class Orchestrator:
-    """Owns the env fleet, the state bank and the fleet programs."""
+    """Owns the env fleet, the state bank and the fleet programs.
+
+    `sample_fleet` and `evaluate` take the policy per call: any module with
+    `distribution` and `value`, a `Policy` built from `pcfg` (the env's
+    spec-derived configuration) or a scenario head of the fleet's
+    multitask policy."""
 
     def __init__(self, env: Env, fleet: FleetConfig, *, seed: int = 0,
                  device: str | torch.device | None = None):
-        self.env = env
+        self.env = env = as_env(env)  # a bare HITConfig coerces here
         self.fleet = fleet
         self.device = resolve_device(device)
         self.pcfg = policy_lib.PolicyConfig.from_specs(env.obs_spec,

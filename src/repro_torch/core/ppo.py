@@ -43,15 +43,24 @@ class Trajectory(NamedTuple):
     last_value: torch.Tensor  # (B,) V(s_T)
 
 
-def make_optimizer(policy: policy_lib.Policy,
+def make_optimizer(policy: torch.nn.Module,
                    cfg: PPOConfig) -> torch.optim.Adam:
     """Adam(lr, eps=1e-8) with its state made up front (step 0, zero
     moments), so that checkpoints have the same tree before the first step;
-    the first step is the same as with lazily made state."""
-    opt = torch.optim.Adam(policy.parameters(), lr=cfg.lr, betas=(0.9, 0.999),
-                           eps=1e-8)
-    for p in policy.parameters():
-        opt.state[p] = {"step": torch.tensor(0.0),
+    the first step is the same as with lazily made state.
+
+    On CUDA parameters the optimizer is `capturable`: its step count lives
+    on the device beside the moments, so that a step, and a guard that
+    keeps the state of before it (`fleet.multitask.guarded_fleet_update`),
+    need no host sync.  On the CPU the step count is a CPU tensor, as
+    torch keeps it there."""
+    params = list(policy.parameters())
+    device = params[0].device
+    opt = torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                           capturable=device.type == "cuda")
+    for p in params:
+        opt.state[p] = {"step": torch.zeros((), dtype=torch.float32,
+                                            device=device),
                         "exp_avg": torch.zeros_like(p),
                         "exp_avg_sq": torch.zeros_like(p)}
     return opt
@@ -86,6 +95,11 @@ def flatten_batch(traj: Trajectory, advantages: torch.Tensor,
     return obs_f, act_f, lp_f, adv_f, ret_f
 
 
+# the keys of `ppo_loss`'s stats, in its order
+LOSS_STATS = ("loss", "surrogate", "value_loss", "entropy", "approx_kl",
+              "clip_frac")
+
+
 def ppo_loss(policy: policy_lib.Policy, cfg: PPOConfig, obs: torch.Tensor,
              actions: torch.Tensor, old_log_probs: torch.Tensor,
              advantages: torch.Tensor, returns: torch.Tensor):
@@ -99,15 +113,10 @@ def ppo_loss(policy: policy_lib.Policy, cfg: PPOConfig, obs: torch.Tensor,
     value_loss = 0.5 * torch.mean((policy.value(obs) - returns) ** 2)
     ent = torch.mean(policy_lib.entropy(std))
     loss = surrogate + cfg.value_coef * value_loss - cfg.entropy_coef * ent
-    stats = {
-        "loss": loss,
-        "surrogate": surrogate,
-        "value_loss": value_loss,
-        "entropy": ent,
-        "approx_kl": torch.mean(old_log_probs - new_log_probs),
-        "clip_frac": torch.mean(
-            (torch.abs(ratio - 1.0) > cfg.clip).to(torch.float32)),
-    }
+    stats = dict(zip(LOSS_STATS, (
+        loss, surrogate, value_loss, ent,
+        torch.mean(old_log_probs - new_log_probs),
+        torch.mean((torch.abs(ratio - 1.0) > cfg.clip).to(torch.float32)))))
     return loss, stats
 
 
@@ -128,18 +137,24 @@ def update_epoch(policy: policy_lib.Policy, opt: torch.optim.Adam,
     opt.zero_grad(set_to_none=False)
     loss, stats = ppo_loss(policy, cfg, *batch)
     loss.backward()
-    grads = [p.grad for p in policy.parameters()]
-    norm = global_norm(grads)
-    if cfg.grad_clip is not None:
-        # scale = min(1, c / max(|g|, 1e-12)), as the reference's clip
-        scale = torch.clamp(cfg.grad_clip / torch.clamp_min(norm, 1e-12),
-                            max=1.0)
-        for g in grads:
-            g.mul_(scale)
+    norm = clip_grads(policy.parameters(), cfg.grad_clip)
     opt.step()
     stats = {k: v.detach() for k, v in stats.items()}
-    stats["grad_norm"] = norm.detach()
+    stats["grad_norm"] = norm
     return stats
+
+
+def clip_grads(params, max_norm: float | None) -> torch.Tensor:
+    """Scale the gradients of `params` in place by min(1, c / max(|g|,
+    1e-12)), the reference's global-norm clip (none if `max_norm` is None);
+    returns the global norm of before the clip."""
+    grads = [p.grad for p in params]
+    norm = global_norm(grads).detach()
+    if max_norm is not None:
+        scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
+        for g in grads:
+            g.mul_(scale)
+    return norm
 
 
 def update(policy: policy_lib.Policy, opt: torch.optim.Adam, cfg: PPOConfig,

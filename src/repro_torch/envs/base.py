@@ -127,3 +127,20 @@ class Env(Protocol):
     def step(self, state: EnvState, action: torch.Tensor) -> StepResult:
         """One MDP transition; deterministic given (state, action)."""
         ...
+
+
+def init_state(u0: torch.Tensor, batch_shape: tuple[int, ...] = ()
+               ) -> EnvState:
+    """Wrap bank rows (or a single state) into a fresh EnvState at t=0."""
+    return EnvState(u=u0, t_step=torch.zeros(batch_shape, dtype=torch.int32,
+                                             device=u0.device))
+
+
+def as_env(env_or_cfg) -> Env:
+    """Coerce a bare `HITConfig` to the Env protocol (the HIT-LES adapter);
+    any other value is returned as it is."""
+    from ..cfd.solver import HITConfig
+    if isinstance(env_or_cfg, HITConfig):
+        from .hit_les import HITLESEnv
+        return HITLESEnv(cfg=env_or_cfg)
+    return env_or_cfg

@@ -27,21 +27,22 @@ class ParamTree(torch.nn.Module):
     `ModuleList`s, so `named_parameters()` gives the JAX leaf paths
     (`layers.0.b0.mixer.attn.wq.w`).  `tree["wq"]["w"]` and `"b" in tree`
     work as on the JAX dicts, which lets the functional layers take either.
-    Parameters are created with `requires_grad=False`: the port's LM path
-    serves (its kernels are forward only).
+    Parameters are created with `requires_grad=False` unless asked: the
+    port's LM path serves (its kernels are forward only); the fleet's
+    multitask policy trains.
     """
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, requires_grad: bool = False):
         super().__init__()
         for key, val in tree.items():
             if isinstance(val, dict):
-                self.add_module(key, ParamTree(val))
+                self.add_module(key, ParamTree(val, requires_grad))
             elif isinstance(val, (list, tuple)):
                 self.add_module(key, torch.nn.ModuleList(
-                    ParamTree(v) for v in val))
+                    ParamTree(v, requires_grad) for v in val))
             else:
                 self.register_parameter(
-                    key, torch.nn.Parameter(val, requires_grad=False))
+                    key, torch.nn.Parameter(val, requires_grad=requires_grad))
 
     def __getitem__(self, key: str):
         return getattr(self, key)

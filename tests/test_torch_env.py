@@ -170,11 +170,10 @@ def test_registry_and_specs_match_reference():
         assert et.n_actions == ej.n_actions
         assert et.cfg.n_substeps == ej.cfg.n_substeps
         assert et.cfg.dt == ej.cfg.dt
-    # the port registers the reference's HIT and channel families so far
-    assert tenvs.registered() == tuple(sorted(
-        n for n in jenvs.registered() if n.startswith(("hit_les",
-                                                       "channel_wm"))))
-    assert len(tenvs.registered()) == 3 + 8
+    # the port registers every env of the reference: the HIT, channel and
+    # Burgers families
+    assert tenvs.registered() == jenvs.registered()
+    assert len(tenvs.registered()) == 3 + 8 + 2
     # the paper's 24-DOF episode: 50 RL steps of 13 substeps of 5 stages
     cfg = tenvs.make("hit_les_24dof").cfg
     assert (cfg.n_actions, cfg.n_substeps) == (50, 13)

@@ -38,7 +38,13 @@ In order, and any failure exits non-zero:
      scenario on the kernel path against the staged plain path, and
      hymba-1.5b at full width in float32 (prefill of 2 x 1,100 tokens and 4
      teacher-forced decode steps) and in bf16 (the prefill) on the kernel
-     path against the plain path;
+     path against the plain path; then the two LM wrappers with inputs
+     that require grad (their autograd Functions: the kernel forward, the
+     plain chunked backward) against the plain forms at hymba's training
+     shape (batch 2 x 4,096 tokens; flash windowed, where whole kv blocks
+     of a row are masked, and global, bf16 and float32; the scan on its
+     chunked instance): the kernel's forward output, and the gradients
+     (the Function's wiring);
   4. times each kernel at its path's shape (16 envs; hymba's prefill of
      4 x 2,048 tokens): its device time (torch.profiler over back-to-back
      calls, in turns plain, kernel, kernel, plain), which the kernels'
@@ -61,8 +67,10 @@ In order, and any failure exits non-zero:
      card's floor per launch (a one-element PyTorch elementwise kernel);
      and the device kernels of a bf16 dg_derivative3 call with a bf16 D
      and of smagorinsky_nut as the channel calls it (each its kernel
-     alone: no cast, no copy);
-  5. drives the four paths through their entry points, each with every
+     alone: no cast, no copy); at hymba's training shape, flash attention's
+     and the scan's kernel forward, the plain backward their Functions run
+     and both together, beside SDPA forward + backward;
+  5. drives the six paths through their entry points, each with every
      launch count set to 0 just before it and read just after:
      `hit_les_24dof` through `repro_torch.launch.rl_train` (2 PPO iterations
      + 1 evaluation, 16 envs) must launch the fused RHS exactly 3 episodes x
@@ -88,12 +96,31 @@ In order, and any failure exits non-zero:
      than the reverted share allows (HIT's exploratory steps are reverted:
      see PERF.md); then one RL step of each sub-fleet is timed, and the
      channel's and Burgers' profiled for their launches per RHS;
+     the fleet's trained controllers served from the pipelined runner's
+     newest checkpoint (`serve.load_service`, one CUDA graph per (scenario,
+     bucket)) on observations its envs produced: two passes of 1, 2, 3, 5,
+     16 and 37 requests per scenario, every served action and value equal
+     to `multitask.actor_mean` / `value` on the same padded batch bit for
+     bit, one capture per (scenario, bucket), the counters equal to what
+     was sent, no RL kernel launched; batch-1 rows against a batch of 16;
+     p50 / p99 latency of submit -> flush per (scenario, bucket), graph
+     replay and eager dispatch;
      hymba-1.5b serving (bf16 weights from a seed,
      `lm.greedy_generate` of 32 new tokens for 4 prompts of 2,048 Zipf
      tokens, then for 4 of 700) must launch flash_attention 32 times, all on
      its tensor-core instance, and linear_scan 1,024 times per batch (32
      layers x (1 prefill + 31 decode steps)), the 32 prefill calls on its
-     chunked instance and the 992 decode calls on its step instance; then
+     chunked instance and the 992 decode calls on its step instance;
+     hymba-1.5b at full width and depth: one step's loss and gradient
+     norm at 2 x 4,096 tokens on the kernel path against the plain path,
+     and two controls (the kernel path with the attention's window dropped,
+     and with the scan's decay read in bf16) that the same gate must
+     reject; then training through `repro_torch.launch.train` (float32
+     masters, bf16 compute, 2 x 4,096 tokens, Adam): 3 steps and a
+     checkpoint, then `--resume` of one more, finite loss and gradient
+     norm, flash attention and the chunked scan launched 2 x 32 times a
+     step (forward and remat recompute), peak device memory, and disk
+     enough for two checkpoints checked first; then
      profiles one RL step of each CFD path (the channel's launches per
      RHS), one HIT PPO epoch, one hymba prefill and one decode step
      (torch.profiler) to show where the time goes;
@@ -107,12 +134,14 @@ It needs a CUDA device and the repository's `src/` beside it.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -154,6 +183,21 @@ TOL_MODEL = 1e-4
 # bf16 activations, each op rounded to bf16 on both paths, where the two
 # paths' attention and scan round differently).
 TOL_MODEL_BF16 = 1e-1
+# a served row alone (bucket 1) against the same row in a batch of 16: the
+# same float32 dense layers as GEMMs of other M, which cuBLAS may sum in
+# another order; 1e-5 of max |action| (a reorder over <= 648 inputs gives
+# ~1e-7)
+TOL_SERVE_ROWS = 1e-5
+# hymba-1.5b training, one step's loss and gradient norm at 2 x 4,096
+# tokens on the kernel path against the plain path (`lm_path_parity`),
+# relative.  Measured on an H100 80GB HBM3 at 700 W: the kernel path
+# 1.29e-4 (loss) and 1.23e-3 (grad norm); the controls that the gate must
+# reject, the attention's window dropped 1.14e-3 / 1.79e-2 and the scan's
+# decay read in bf16 1.33e-4 / 2.25e-2.  Each limit sits between the two,
+# about 3x from each side (the loss alone cannot tell the bf16 decay from
+# the sound path; the grad norm tells both).
+TOL_TRAIN_LOSS = 4e-4
+TOL_TRAIN_GRAD_NORM = 5e-3
 
 
 def ns_rhs_operations(batch: int, kx: int, ky: int, kz: int, n: int) -> int:
@@ -376,6 +420,32 @@ def device_ms(fn, calls: int) -> float:
     return start.elapsed_time(end) / calls
 
 
+def event_ms(calls: dict, reps: int = 5) -> dict:
+    """Per named zero-argument call: the median of `reps` CUDA-event
+    timings of one call (after two warm-up calls), in turns.  For calls of
+    tens of milliseconds and thousands of launches, which a profiler
+    window of 50 would take minutes to trace."""
+    import torch
+
+    for _ in range(2):
+        for f in calls.values():
+            f()
+    times: dict[str, list[float]] = {k: [] for k in calls}
+    for _ in range(reps):
+        for name, f in calls.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            f()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    for name, t in times.items():
+        print(f"  {name}: {statistics.median(t):.7f} ms (median of "
+              f"{reps}: {', '.join(f'{x:.4f}' for x in t)})")
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def ptxas_report(log: str) -> list[str]:
     """One line per compiled kernel from nvcc's `-Xptxas -v` output: the
     kernel's (mangled) name, then its spills and its registers."""
@@ -390,13 +460,16 @@ def ptxas_report(log: str) -> list[str]:
     return lines
 
 
-def time_calls(calls: dict, windows: int = 50, alone: int = 25
-               ) -> tuple[dict, dict]:
+def time_calls(calls: dict, windows: int = 50, alone: int = 25,
+               plain_windows: int | None = None) -> tuple[dict, dict]:
     """Per named zero-argument call: its device time per call (profiler over
     `windows` back-to-back calls, one window each in the order of `calls`
     and again in reverse, e.g. plain, kernel, kernel, plain; the mean of
     the two), and one call alone with its host work (median of `alone`
-    CUDA-event windows, the calls in turns)."""
+    CUDA-event windows, the calls in turns).  `plain_windows`, where given,
+    is the window of the call named "plain": a plain version launches
+    hundreds to thousands of kernels a call, so a short window holds
+    thousands of events, and the profiler takes seconds per thousand."""
     import torch
 
     for _ in range(3):  # warm-up
@@ -415,7 +488,9 @@ def time_calls(calls: dict, windows: int = 50, alone: int = 25
             alone_times[name].append(start.elapsed_time(end))
     dev_times: dict[str, list[float]] = {k: [] for k in calls}
     for name in list(calls) + list(reversed(calls)):
-        dev_times[name].append(device_ms(calls[name], windows))
+        dev_times[name].append(device_ms(
+            calls[name], plain_windows if name == "plain" and plain_windows
+            else windows))
     for name in calls:
         print(f"  {name}: device time {statistics.mean(dev_times[name]):.7f} "
               f"ms ({', '.join(f'{t:.7f}' for t in dev_times[name])}); one "
@@ -525,19 +600,20 @@ class GuardReverts:
         return out
 
 
-def fleet_phase(counters: list, per_rollout: dict, card: str) -> tuple:
+def fleet_phase(counters: list, per_rollout: dict, card: str,
+                ckpt: str) -> tuple:
     """The heterogeneous fleet through `fleet.make_fleet_runner` (device
     None: the GPU): 32 envs apportioned by static step cost with at least 8
     each, one shared multitask policy; one pipelined iteration (the
-    prologue rollout, then update 0 and rollout 1), one more pipelined
-    iteration alone (a rollout and an update), then one synchronous
+    prologue rollout, then update 0 and rollout 1), then one synchronous
     iteration of a second runner for the timings, followed by every
     scenario's evaluation episode.  Each call's launches must be
     `per_rollout` times its fleet rollouts and evaluations; each
     sub-fleet's guard reverts are counted (`GuardReverts`) and held.  Then
     one RL step of each sub-fleet, timed alone, and the channel's and
-    Burgers' profiled.  Returns the launches summed over the calls, in the
-    order of `counters`."""
+    Burgers' profiled.  The runners checkpoint under `ckpt`.  Returns the
+    launches summed over the calls, in the order of `counters`, and the
+    pipelined runner (its checkpoints stay for the serving phase)."""
     import torch
 
     from repro_torch import envs, fleet
@@ -548,65 +624,66 @@ def fleet_phase(counters: list, per_rollout: dict, card: str) -> tuple:
     dev = torch.device("cuda", 0)
     fleet_names = ("hit_les_24dof", "channel_wm", "burgers_96dof")
     fleet_launches = [0] * len(counters)
-    with tempfile.TemporaryDirectory() as ckpt:
-        for label, pipelined, n_iter, rollouts in (
-                ("pipelined, prologue + iteration 0", True, 1, 2),
-                ("pipelined, iteration 1", True, 2, 1),
-                ("synchronous, iteration 0 + evaluation", False, 1, 2)):
-            if label.startswith("pipelined, prologue") or not pipelined:
-                frunner = fleet.make_fleet_runner(
-                    fleet_names, total_envs=32, min_envs=8,
-                    run_cfg=FleetRunnerConfig(
-                        pipelined=pipelined,
-                        eval_every=10**6 if pipelined else 1,
-                        checkpoint_every=10**6,
-                        checkpoint_dir=os.path.join(ckpt, label[:4])))
-                split = [m.n_envs for m in frunner.schedule.members]
-                costs = [m.cost for m in frunner.schedule.members]
-                print(f"fleet schedule: {dict(zip(fleet_names, split))}, "
-                      f"static costs {costs}, on {frunner.device}")
-                if split != [8, 8, 16] or frunner.device.type != "cuda":
-                    raise AssertionError(f"fleet schedule {split} on "
-                                         f"{frunner.device}, expected "
-                                         f"[8, 8, 16] on the GPU")
-                for orch in frunner.forch.orchs.values():
-                    orch.env = GuardReverts(orch.env)
-            history, counts, wall = drive_fleet(frunner, n_iter, counters)
-            reverts = {n: frunner.forch.orchs[n].env.read()
-                       for n in fleet_names}
-            want = [rollouts * per_rollout["hit"]] + \
-                [rollouts * per_rollout["chan"]] * 3 + [0, 0]
-            want_split = ({"cluster": want[0], "two_pass": 0},
-                          {"tiled": want[1], "generic": 0})
-            split = (dict(rhs.fused_navier_stokes_rhs.instance_launches),
-                     dict(dg_derivative.dg_derivative3.instance_launches))
-            print(f"main path fleet {label}: {wall:.3f} s wall ({card}), "
-                  f"{rollouts} fleet rollout(s) or evaluation(s), launches "
-                  f"{dict(zip(names, counts))}; fused RHS by instance "
-                  f"{split[0]}, dg_derivative3 by instance {split[1]}")
-            if counts != want or split != want_split:
-                raise AssertionError(f"fleet {label}: launches {counts} "
-                                     f"{split}, expected {want} {want_split}")
-            (rec,) = history
-            for key in ("t_sample_s", "t_update_s"):
-                if key in rec:
-                    print(f"  {key}={rec[key]:.3f}")
-            print("  " + ", ".join(
-                f"{n}: return_norm={rec[f'{n}/return_norm']:.6f}"
-                for n in fleet_names) + f", update_ok={rec['update_ok']}")
-            print("  guard reverts {batch: (reverted, env-steps)}: "
-                  + ", ".join(f"{n} {reverts[n]}" for n in fleet_names))
-            if rec["update_ok"] != 1.0 or not all(
-                    math.isfinite(rec[f"{n}/return_norm"])
-                    and -1.0 <= rec[f"{n}/return_norm"] <= 1.0
-                    for n in fleet_names):
-                raise AssertionError(f"fleet {label}: {rec}")
-            if pipelined != ("t_sample_s" not in rec):
-                raise AssertionError(f"fleet {label}: timings {rec}")
-            check_reverts(label, frunner, rec, reverts, pipelined)
-            fleet_launches = [a + c for a, c in zip(fleet_launches, counts)]
+    for label, pipelined, rollouts in (
+            ("pipelined, prologue + iteration 0", True, 2),
+            ("synchronous, iteration 0 + evaluation", False, 2)):
+        frunner = fleet.make_fleet_runner(
+            fleet_names, total_envs=32, min_envs=8,
+            run_cfg=FleetRunnerConfig(
+                pipelined=pipelined,
+                eval_every=10**6 if pipelined else 1,
+                checkpoint_every=10**6,
+                checkpoint_dir=os.path.join(ckpt, label[:4])))
+        split = [m.n_envs for m in frunner.schedule.members]
+        costs = [m.cost for m in frunner.schedule.members]
+        print(f"fleet schedule: {dict(zip(fleet_names, split))}, "
+              f"static costs {costs}, on {frunner.device}")
+        if split != [8, 8, 16] or frunner.device.type != "cuda":
+            raise AssertionError(f"fleet schedule {split} on "
+                                 f"{frunner.device}, expected "
+                                 f"[8, 8, 16] on the GPU")
         for orch in frunner.forch.orchs.values():
-            orch.env = orch.env.env
+            orch.env = GuardReverts(orch.env)
+        if pipelined:
+            prunner = frunner
+        history, counts, wall = drive_fleet(frunner, 1, counters)
+        reverts = {n: frunner.forch.orchs[n].env.read()
+                   for n in fleet_names}
+        want = [rollouts * per_rollout["hit"]] + \
+            [rollouts * per_rollout["chan"]] * 3 + [0, 0]
+        want_split = ({"cluster": want[0], "two_pass": 0},
+                      {"tiled": want[1], "generic": 0})
+        split = (dict(rhs.fused_navier_stokes_rhs.instance_launches),
+                 dict(dg_derivative.dg_derivative3.instance_launches))
+        print(f"main path fleet {label}: {wall:.3f} s wall ({card}), "
+              f"{rollouts} fleet rollout(s) or evaluation(s), launches "
+              f"{dict(zip(names, counts))}; fused RHS by instance "
+              f"{split[0]}, dg_derivative3 by instance {split[1]}")
+        if counts != want or split != want_split:
+            raise AssertionError(f"fleet {label}: launches {counts} "
+                                 f"{split}, expected {want} {want_split}")
+        (rec,) = history
+        for key in ("t_sample_s", "t_update_s"):
+            if key in rec:
+                print(f"  {key}={rec[key]:.3f}")
+        print("  " + ", ".join(
+            f"{n}: return_norm={rec[f'{n}/return_norm']:.6f}"
+            for n in fleet_names) + f", update_ok={rec['update_ok']}")
+        print("  guard reverts {batch: (reverted, env-steps)}: "
+              + ", ".join(f"{n} {reverts[n]}" for n in fleet_names))
+        if rec["update_ok"] != 1.0 or not all(
+                math.isfinite(rec[f"{n}/return_norm"])
+                and -1.0 <= rec[f"{n}/return_norm"] <= 1.0
+                for n in fleet_names):
+            raise AssertionError(f"fleet {label}: {rec}")
+        if pipelined != ("t_sample_s" not in rec):
+            raise AssertionError(f"fleet {label}: timings {rec}")
+        check_reverts(label, frunner, rec, reverts, pipelined)
+        fleet_launches = [a + c for a, c in zip(fleet_launches, counts)]
+    for runner in (prunner, frunner):
+        for orch in runner.forch.orchs.values():
+            if isinstance(orch.env, GuardReverts):
+                orch.env = orch.env.env
     # one RL step of each sub-fleet at its batch, timed alone; the channel
     # and Burgers steps also profiled for their launches per RHS
     for name, orch in frunner.forch.orchs.items():
@@ -634,7 +711,552 @@ def fleet_phase(counters: list, per_rollout: dict, card: str) -> tuple:
                 print(f"  {name}: {got} launches in the trace over {n_rhs} "
                       f"RHS calls, {got / n_rhs:.1f} per RHS (the profiler "
                       f"may drop a few)")
-    return fleet_launches
+    return fleet_launches, prunner
+
+
+def lm_grad_parity(lm_cfg, gen, dev, errs: dict) -> None:
+    """The LM kernel wrappers with inputs that require grad, at hymba-1.5b's
+    training shape (batch 2 x 4,096 tokens), against the plain forms: the
+    kernel's forward output (the kernel itself at this shape) and the
+    gradients (the Function's backward is autograd through the same plain
+    form, so these check the Function's wiring: which inputs, which
+    cotangents, the forward's u/s0 reading).  Each error goes into
+    `errs`."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, linear_scan
+
+    # the two wrappers through their autograd Functions (the kernel
+    # forward, the backward of the plain chunked form) against autograd
+    # through the plain forms: flash attention windowed (rows past window
+    # + block_k have whole kv blocks masked, m = -inf there) and global,
+    # bf16 on the tensor-core instance and float32 on the CUDA-core one;
+    # the scan at 50 rows of T = 4,096 on the chunked instance, with a
+    # cotangent on S_final too
+    b_tr, s_tr = 2, 4096
+    for dtype in (torch.bfloat16, torch.float32):
+        tname = str(dtype).split(".")[-1]
+        kind = flash_attention.instance(dtype)
+        for label, window in ((f"window {lm_cfg.window}", lm_cfg.window),
+                              ("global", None)):
+            q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
+                       for shape in ((b_tr, lm_cfg.n_heads, s_tr, lm_cfg.hd),
+                                     (b_tr, lm_cfg.kv_heads, s_tr, lm_cfg.hd),
+                                     (b_tr, lm_cfg.kv_heads, s_tr, lm_cfg.hd)))
+            grad = torch.randn(q.shape, generator=gen).to(dev, dtype)
+            ins = [t.clone().requires_grad_() for t in (q, k, v)]
+            before = flash_attention.flash_attention.instance_launches[kind]
+            out = flash_attention.flash_attention(*ins, window=window)
+            got = torch.autograd.grad(out, ins, grad)
+            torch.cuda.synchronize()
+            if flash_attention.flash_attention.instance_launches[kind] \
+                    != before + 1:
+                raise AssertionError(f"flash_attention with grad did not "
+                                     f"launch its {kind} instance once")
+            plain = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref = flash_attention.mha_chunked(*plain, window=window)
+            want = torch.autograd.grad(ref, plain, grad)
+            shapes = f"{label} q {tuple(q.shape)} kv {tuple(k.shape)} {tname}"
+            errs[f"flash_attention forward {tname} {label}"] = parity(
+                f"flash_attention [{kind}] with grad, output {shapes}: "
+                f"kernel vs mha_chunked", out.detach(), ref.detach(),
+                TOL_FLASH[tname])
+            err = max(parity(f"flash_attention [{kind}] gradient d{name} "
+                             f"{shapes}: Function vs autograd through "
+                             f"mha_chunked (wiring)", a, w, TOL_FLASH[tname])
+                      for name, a, w in zip("qkv", got, want))
+            errs[f"flash_attention grad {tname} {label}"] = err
+            del q, k, v, grad, ins, plain, out, ref, got, want
+        rows = b_tr * lm_cfg.n_heads
+        n_s, d_s = lm_cfg.ssm_state, lm_cfg.hd
+        qs = torch.randn((rows, s_tr, n_s), generator=gen).to(dev, dtype)
+        ks = (0.25 * torch.randn((rows, s_tr, n_s), generator=gen)).to(dev)
+        vs = torch.randn((rows, s_tr, d_s), generator=gen).to(dev, dtype)
+        ws = torch.exp(-0.1 * torch.rand((rows, s_tr, n_s),
+                                         generator=gen)).to(dev)
+        go = torch.randn((rows, s_tr, d_s), generator=gen).to(dev, dtype)
+        gs = torch.randn((rows, n_s, d_s), generator=gen).to(dev)
+        ins = [x.clone().requires_grad_() for x in (qs, ks, vs, ws)]
+        before = dict(linear_scan.linear_scan.instance_launches)
+        o, s_fin = linear_scan.linear_scan(*ins, decay_before_read=True)
+        got = torch.autograd.grad((o, s_fin), ins, (go, gs))
+        torch.cuda.synchronize()
+        if linear_scan.linear_scan.instance_launches != dict(
+                before, chunked=before["chunked"] + 1):
+            raise AssertionError("linear_scan with grad did not launch its "
+                                 "chunked instance once")
+        plain = [x.clone().requires_grad_() for x in (qs, ks, vs, ws)]
+        o_p, s_p = linear_scan.linear_scan_chunked(*plain,
+                                                   decay_before_read=True)
+        want = torch.autograd.grad((o_p.to(dtype), s_p), plain, (go, gs))
+        shapes = f"({rows}, {s_tr}, {n_s}, {d_s}) {tname}"
+        errs[f"linear_scan forward {tname}"] = max(
+            parity(f"linear_scan [chunked] with grad, {name} {shapes}: "
+                   f"kernel vs linear_scan_chunked", a.detach(),
+                   w.detach().to(a.dtype), TOL[str(a.dtype).split(".")[-1]])
+            for name, a, w in (("o", o, o_p), ("S_final", s_fin, s_p)))
+        err = max(parity(f"linear_scan [chunked] gradient d{name} {shapes}: "
+                         f"Function vs autograd through linear_scan_chunked "
+                         f"(wiring)", a, w,
+                         TOL[tname if a.dtype == dtype else "float32"])
+                  for name, a, w in zip("qkvw", got, want))
+        errs[f"linear_scan grad {tname}"] = err
+        del qs, ks, vs, ws, go, gs, ins, plain, o, s_fin, o_p, s_p, got, want
+
+
+
+def training_errs(errs: dict, kernel: str) -> dict:
+    """A kernel's errors from `lm_grad_parity` for the kernels line: the
+    forward output at the training shape (the kernel's own error), and the
+    gradients (the Function's wiring; 0 where it is right), by dtype and
+    case."""
+    return {key: {k.split(f"{kind} ", 1)[1]: v for k, v in errs.items()
+                  if k.startswith(f"{kernel} {kind} ")}
+            for key, kind in (("max_abs_err", "forward"),
+                              ("max_abs_err_grad_wiring", "grad"))}
+
+
+def lm_training_times(lm_cfg, gen, dev, card: str) -> tuple[dict, dict]:
+    """Times of the training path's LM kernel calls at batch 2 x 4,096
+    tokens, one call alone each (CUDA events, `event_ms`): flash attention
+    (bf16, window) and the scan, each its kernel forward, the plain
+    backward its Function runs, and both through the Function; SDPA
+    forward + backward beside attention."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, linear_scan
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16, win = torch.bfloat16, lm_cfg.window
+    hq, hkv, d, n = (lm_cfg.n_heads, lm_cfg.kv_heads, lm_cfg.hd,
+                     lm_cfg.ssm_state)
+    seq = 4096
+    # the training path's calls at batch 2 x 4,096 tokens: the kernel's
+    # forward, the plain backward its autograd Function runs (the plain
+    # chunked forward again and its vjp), the two through the Function,
+    # and for attention one PyTorch call that does both, SDPA forward +
+    # backward (band mask, enable_gqa); bf16 attention as trained
+    qt, kt, vt = (torch.randn(shape, generator=gen).to(dev, bf16)
+                  for shape in ((2, hq, seq, d), (2, hkv, seq, d),
+                                (2, hkv, seq, d)))
+    gt = torch.randn(qt.shape, generator=gen).to(dev, bf16)
+    band = torch.ones((seq, seq), dtype=torch.bool, device=dev)
+    band = band.tril() & ~band.tril(-win)
+
+    def vjp(fn, *xs, grad):
+        """The gradients of fn's output at xs, along `grad`."""
+        xs = [x.detach().requires_grad_() for x in xs]
+        return torch.autograd.grad(fn(*xs), xs, grad)
+
+    def training_times(ms: dict) -> dict:
+        return {"forward_ms": ms["kernel forward"],
+                "plain_backward_ms": ms["plain backward"],
+                "function_forward_backward_ms":
+                    ms["kernel forward + plain backward (Function)"]}
+
+    print(f"time per call ({card}), flash_attention window {win} q "
+          f"{tuple(qt.shape)} kv {tuple(kt.shape)} bf16, training:")
+    ms = event_ms({
+        "kernel forward": lambda: flash_attention.flash_attention(
+            qt, kt, vt, window=win),
+        "plain backward": lambda: vjp(
+            lambda *x: flash_attention.mha_chunked(*x, window=win),
+            qt, kt, vt, grad=gt),
+        "kernel forward + plain backward (Function)": lambda: vjp(
+            lambda *x: flash_attention.flash_attention(*x, window=win),
+            qt, kt, vt, grad=gt),
+        "library forward + backward": lambda: vjp(
+            lambda *x: sdpa(*x, attn_mask=band, enable_gqa=True),
+            qt, kt, vt, grad=gt)})
+    train_fa = training_times(ms)
+    train_fa["library_forward_backward_ms"] = \
+        ms["library forward + backward"]
+    print(f"  flash_attention training ({card}): kernel forward "
+          f"{ms['kernel forward']:.7f} ms, plain backward "
+          f"{ms['plain backward']:.7f} ms, both through the Function "
+          f"{ms['kernel forward + plain backward (Function)']:.7f} ms; SDPA "
+          f"forward + backward {ms['library forward + backward']:.7f} ms")
+    del qt, kt, vt, gt, band
+    qs_t = torch.randn((2 * hq, seq, n), generator=gen).to(dev, bf16)
+    ks_t = (0.25 * torch.randn((2 * hq, seq, n), generator=gen)).to(dev)
+    vs_t = torch.randn((2 * hq, seq, d), generator=gen).to(dev, bf16)
+    ws_t = torch.exp(-0.1 * torch.rand((2 * hq, seq, n),
+                                       generator=gen)).to(dev)
+    go_t = torch.randn((2 * hq, seq, d), generator=gen).to(dev, bf16)
+    print(f"time per call ({card}), linear_scan q/k/w {tuple(qs_t.shape)} v "
+          f"{tuple(vs_t.shape)} (q, v bf16; k, w f32), training:")
+    ms = event_ms({
+        "kernel forward": lambda: linear_scan.linear_scan(
+            qs_t, ks_t, vs_t, ws_t, decay_before_read=True),
+        "plain backward": lambda: vjp(
+            lambda *x: linear_scan.linear_scan_chunked(
+                *x, decay_before_read=True)[0].to(bf16),
+            qs_t, ks_t, vs_t, ws_t, grad=go_t),
+        "kernel forward + plain backward (Function)": lambda: vjp(
+            lambda *x: linear_scan.linear_scan(
+                *x, decay_before_read=True)[0],
+            qs_t, ks_t, vs_t, ws_t, grad=go_t)})
+    train_ls = training_times(ms)
+    print(f"  linear_scan training ({card}): kernel forward "
+          f"{ms['kernel forward']:.7f} ms, plain backward "
+          f"{ms['plain backward']:.7f} ms, both through the Function "
+          f"{ms['kernel forward + plain backward (Function)']:.7f} ms; "
+          f"library call: none")
+    del qs_t, ks_t, vs_t, ws_t, go_t
+    return train_fa, train_ls
+
+
+@contextlib.contextmanager
+def patched(module, name: str, wrap):
+    """module.name replaced by wrap(module.name) inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def lm_path_parity(cfg, card: str) -> dict:
+    """One training step's loss and gradient norm at the training path's
+    batch (2 x 4,096 tokens, the TokenStream's first batch, the seed's
+    params): the kernel path against the plain path, and against the
+    kernel path with a fault put into one kernel's output (the controls,
+    which the gate must reject).  The plain path runs one sequence at a
+    time (with remat it keeps a whole group's float32 attention blocks,
+    ~5 GB a layer per sequence, so 2 x 4,096 does not fit the card) and
+    its losses and gradients are combined with the token counts as
+    weights, which is the batch's mean.  Returns the readings, relative to
+    the plain path, and the parameter count."""
+    import gc
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, lm
+
+    batch, seq = 2, 4096
+    params = api.init(cfg, seed=0)
+    plist = list(params.parameters())
+    n_params = sum(p.numel() for p in plist)
+    tokens = TokenStream(cfg, batch, seq, seed=0).next()
+    kernel_cfg = dataclasses.replace(cfg, attn_impl="kernel",
+                                     scan_impl="kernel")
+    plain_cfg = dataclasses.replace(cfg, attn_impl="chunked",
+                                    scan_impl="chunked")
+
+    def loss_and_grads(cfg_i, rows):
+        params.requires_grad_(True)
+        loss, metrics = lm.lm_loss(params, cfg_i, rows)
+        grads = torch.autograd.grad(loss, plist)
+        return float(loss.detach()), float(metrics["tokens"]), grads
+
+    def step(label: str, cfg_i) -> tuple[float, float]:
+        """The kernel-path step at the full batch: (loss, grad_norm)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _, grads = loss_and_grads(cfg_i, tokens)
+        norm = float(optim.global_norm(grads))
+        print(f"hymba-1.5b one step's loss and gradient at {batch} x {seq} "
+              f"tokens, {label}: loss {loss:.6f}, grad_norm {norm:.6f}, "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms, peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+              f"({card})")
+        return loss, norm
+
+    got = {"kernel path": step("kernel path", kernel_cfg)}
+    # the plain path, one sequence at a time; the first sequence's
+    # gradients wait on the host while the second runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    parts = []
+    for i in range(batch):
+        loss, count, grads = loss_and_grads(
+            plain_cfg, {k: v[i:i + 1] for k, v in tokens.items()})
+        parts.append((loss, count, [g.cpu() for g in grads] if i == 0
+                      else grads))
+        del grads
+    total = sum(c for _, c, _ in parts)
+    loss = sum(l_i * c for l_i, c, _ in parts) / total
+    (_, c0, g0), (_, c1, g1) = parts
+    sq = torch.zeros((), device=g1[0].device)
+    for a, b in zip(g0, g1):
+        sq += torch.sum(torch.square((a.to(b.device) * c0 + b * c1) / total))
+    got["plain path"] = (loss, float(torch.sqrt(sq)))
+    print(f"hymba-1.5b one step's loss and gradient at {batch} x {seq} "
+          f"tokens, plain path (one sequence at a time): loss {loss:.6f}, "
+          f"grad_norm {got['plain path'][1]:.6f}, "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({card})")
+    del parts, g0, g1, sq
+    # the controls: the kernel path with one fault of the kind the gate is
+    # there to catch, put into a kernel's inputs or output at the model's
+    # dispatch (`kernels.ops`); the last is below what the gate resolves
+    # (measured: 3.0e-5 / 8.1e-4, inside the kernel path's own spread) and
+    # is printed to show that resolution, not gated
+    bf16 = torch.bfloat16
+    controls = {
+        "control: attention window dropped": ("attention",
+            lambda f: lambda q, k, v, **kw: f(q, k, v, **dict(kw,
+                                                              window=None))),
+        "control: scan decay read in bf16": ("gated_linear_scan",
+            lambda f: lambda q, k, v, w, *a, **kw: f(
+                q, k, v, w.to(bf16).to(w.dtype), *a, **kw)),
+        "below resolution: attention output 2^-7 high": ("attention",
+            lambda f: lambda *a, **kw: f(*a, **kw) * (1.0 + 2.0**-7)),
+    }
+    for label, (name, wrap) in controls.items():
+        with patched(ops, name, wrap):
+            got[label] = step(label, kernel_cfg)
+    del params, plist, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    lp, gp = got["plain path"]
+    rel = {label: (abs(lo - lp) / abs(lp), abs(gn - gp) / gp)
+           for label, (lo, gn) in got.items() if label != "plain path"}
+    for label, (dl, dg) in rel.items():
+        print(f"hymba-1.5b training step, {label} vs plain path: loss rel "
+              f"{dl:.3e} (tol {TOL_TRAIN_LOSS:g}), grad_norm rel {dg:.3e} "
+              f"(tol {TOL_TRAIN_GRAD_NORM:g})")
+    dl, dg = rel["kernel path"]
+    if not (dl <= TOL_TRAIN_LOSS and dg <= TOL_TRAIN_GRAD_NORM):
+        raise AssertionError("hymba-1.5b training: kernel path and plain "
+                             "path disagree beyond the bf16 pins")
+    for label in controls:
+        if not label.startswith("control"):
+            continue
+        dl, dg = rel[label]
+        if dl <= TOL_TRAIN_LOSS and dg <= TOL_TRAIN_GRAD_NORM:
+            raise AssertionError(f"hymba-1.5b training: the gate passes "
+                                 f"the {label}")
+    return {"readings": got, "relative": rel, "n_params": n_params}
+
+
+def lm_train_phase(counters: list, card: str) -> dict:
+    """hymba-1.5b at full width and depth: first one step's loss and
+    gradient norm on the kernel path against the plain path
+    (`lm_path_parity`), then training through `repro_torch.launch.train`
+    (device None: the GPU): float32 masters, bf16 compute, batch 2 x 4,096
+    tokens, Adam (lr 3e-4, clip 1.0); 3 steps and a checkpoint, then
+    `--resume` of one more step.  Each run with every count set to 0 just
+    before and read just after: per step each layer's flash attention and
+    scan run twice (the forward and the remat recompute; the backward is
+    the plain chunked forms'), all on the tensor-core flash instance and
+    the chunked scan instance.  Returns the launches by counter name, the
+    comparison's readings, and each run's wall time, peak memory and step
+    records."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention, linear_scan
+    from repro_torch.launch import train as train_cli
+
+    names = [fn.__name__ for fn in counters]
+    cfg = configs.get("hymba-1.5b")
+    batch, seq = 2, 4096
+    per_step = 2 * cfg.n_layers
+    out = {"launches": [0] * len(counters),
+           "parity": lm_path_parity(cfg, card)}
+    fa_split = flash_attention.flash_attention.instance_launches
+    ls_split = linear_scan.linear_scan.instance_launches
+    with tempfile.TemporaryDirectory() as ckpt:
+        # the two runs leave two checkpoints (params, m, v in float32)
+        need = 2 * 12 * out["parity"]["n_params"]
+        free = shutil.disk_usage(ckpt).free
+        print(f"checkpoint disk: {need / 1e9:.1f} GB needed for two "
+              f"checkpoints, {free / 1e9:.1f} GB free in {ckpt}")
+        if free < need + 2**30:
+            raise AssertionError(f"hymba training needs {need / 1e9:.1f} GB "
+                                 f"of disk for its checkpoints, "
+                                 f"{free / 1e9:.1f} GB free")
+        for label, steps, extra, n_steps in (
+                ("3 steps", 3, [], 3),
+                ("--resume, 1 more step", 4, ["--resume"], 1)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(counters)
+            t0 = time.perf_counter()
+            history = train_cli.main([
+                "--arch", "hymba-1.5b", "--steps", str(steps), "--batch",
+                str(batch), "--seq", str(seq), "--checkpoint-dir", ckpt,
+                "--checkpoint-every", "1000"] + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = [fn.launches for fn in counters]
+            split = (dict(fa_split), dict(ls_split))
+            peak = torch.cuda.max_memory_allocated()
+            want = [0, 0, 0, 0, n_steps * per_step, n_steps * per_step]
+            want_split = ({"cuda_core": 0, "tensor_core": want[4]},
+                          {"step": 0, "chunked": want[5]})
+            steps_s = [r["step_s"] for r in history]
+            print(f"main path hymba-1.5b training, {label} ({card}): "
+                  f"{wall:.3f} s wall ({sum(steps_s):.3f} s in the steps, the "
+                  f"rest init and checkpoint I/O), peak device memory "
+                  f"{peak / 2**30:.3f} GiB; launches {dict(zip(names, counts))}"
+                  f" (expected {dict(zip(names, want))}); flash by instance "
+                  f"{split[0]}, scan by instance {split[1]}")
+            for rec in history:
+                print(f"  step {rec['step']}: loss {rec['loss']:.6f}, ce "
+                      f"{rec['ce']:.6f}, grad_norm {rec['grad_norm']:.6f}, "
+                      f"{rec['step_s'] * 1e3:.3f} ms, "
+                      f"{rec['tokens_per_s']:.1f} tokens/s")
+            if [r["step"] for r in history] != list(range(steps - n_steps,
+                                                          steps)):
+                raise AssertionError(f"hymba training {label}: steps "
+                                     f"{[r['step'] for r in history]}")
+            if not all(math.isfinite(r[k]) for r in history
+                       for k in ("loss", "grad_norm")):
+                raise AssertionError(f"hymba training {label}: non-finite "
+                                     f"loss or gradient norm")
+            if counts != want or split != want_split:
+                raise AssertionError(f"hymba training {label}: launches "
+                                     f"{counts} {split}, expected {want} "
+                                     f"{want_split}")
+            out["launches"] = [a + c for a, c in zip(out["launches"],
+                                                     counts)]
+            out[label] = {"wall_s": wall, "peak_bytes": peak,
+                          "history": history}
+    return out
+
+
+def percentile(values: list, q: float) -> float:
+    """The q-th percentile (0-100) of `values`, nearest rank."""
+    ranked = sorted(values)
+    return ranked[min(len(ranked) - 1, max(0, math.ceil(q / 100 * len(ranked))
+                                           - 1))]
+
+
+def serve_phase(runner, counters: list, card: str) -> dict:
+    """The fleet's trained controllers served from the pipelined runner's
+    newest checkpoint through `serve.load_service` (device None: the GPU),
+    on observations its envs produced (the broker's last trajectories).
+    Two passes over every scenario at 1, 2, 3, 5, 16 and 37 requests (every
+    bucket of the ladder, padding, chunking above 16): each served action
+    and value must equal `multitask.actor_mean` / `value` of the runner's
+    policy on the same padded batch, eager on the card, bit for bit; each
+    (scenario, bucket) captured once over the two passes; the counters
+    equal the requests and batches sent; no RL kernel launched.  Then
+    batch-1 rows against a batch of 16, and the latency of submit -> flush
+    per (scenario, bucket), graph replay against eager dispatch.  Returns
+    the latencies."""
+    import numpy as np
+    import torch
+
+    from repro_torch import serve
+    from repro_torch.core import checkpoints
+    from repro_torch.fleet import broker as broker_lib
+    from repro_torch.fleet import multitask
+
+    names = runner.forch.names
+    ckpt = runner.run_cfg.checkpoint_dir
+    obs = {n: broker_lib.latest_traj(runner.broker, n).obs.flatten(0, 1)
+           .cpu().numpy() for n in names}
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    svc = serve.load_service(ckpt)
+    print(f"serving: checkpoint step {checkpoints.latest_step(ckpt)} of the "
+          f"pipelined fleet runner (iteration {runner.iteration}) loaded on "
+          f"{svc.device} in {time.perf_counter() - t0:.3f} s; observation "
+          f"rows from its broker {({n: o.shape for n, o in obs.items()})}")
+    if svc.device.type != "cuda" or svc.scenarios != names:
+        raise AssertionError(f"service on {svc.device} for {svc.scenarios}")
+    counts_sent = {n: {"requests": 0, "batches": 0} for n in names}
+    mismatched = 0
+    for _ in range(2):
+        for name in names:
+            start = 0
+            for n_req in (1, 2, 3, 5, 16, 37):
+                rows = obs[name][np.arange(start, start + n_req)
+                                 % len(obs[name])]
+                start += n_req
+                uids = [svc.submit(name, row) for row in rows]
+                results = svc.flush()
+                cap = serve.DEFAULT_BUCKETS[-1]
+                for c in range(0, n_req, cap):
+                    chunk = rows[c:c + cap]
+                    bucket = serve.bucket_for(len(chunk))
+                    padded = np.concatenate(
+                        [chunk, np.repeat(chunk[-1:], bucket - len(chunk),
+                                          0)])
+                    x = torch.from_numpy(padded).cuda()
+                    with torch.no_grad():
+                        want_a = multitask.actor_mean(
+                            runner.policy.params, svc.mcfg, name, x).cpu()
+                        want_v = multitask.value(
+                            runner.policy.params, svc.mcfg, name, x).cpu()
+                    for i, uid in enumerate(uids[c:c + cap]):
+                        res = results[uid]
+                        mismatched += int(not (
+                            np.array_equal(res.action, want_a[i].numpy())
+                            and res.value == float(want_v[i])))
+                    counts_sent[name]["requests"] += len(chunk)
+                    counts_sent[name]["batches"] += 1
+    launched = [fn.launches for fn in counters]
+    stats = svc.stats()
+    want_captures = {(n, b): 1 for n in names for b in serve.DEFAULT_BUCKETS}
+    print(f"serving, two passes of {names} x (1, 2, 3, 5, 16, 37) requests: "
+          f"{mismatched} results differ from actor_mean/value on the padded "
+          f"batch; captures {svc.captures}; counters {stats} (sent "
+          f"{counts_sent}); RL kernel launches {launched}")
+    if mismatched or svc.captures != want_captures or stats != counts_sent \
+            or any(launched):
+        raise AssertionError("serving the fleet's controllers: results, "
+                             "captures, counters or launches are off")
+    # batch-1 rows against the same rows in one batch of 16 (other GEMM
+    # shapes on the card)
+    worst = 0.0
+    for name in names:
+        rows = obs[name][:16]
+        singles = np.stack([svc.serve_batch(name, r[None])[0] for r in rows])
+        batch = svc.serve_batch(name, rows)
+        diff = float(np.abs(singles - batch).max())
+        scale = float(np.abs(batch).max())
+        print(f"serving {name}: 16 rows one at a time vs in one batch of "
+              f"16: max |d| {diff:.3e} of max |action| {scale:.3e}"
+              f"{' (bitwise equal)' if diff == 0 else ''}")
+        worst = max(worst, diff / scale)
+    if worst > TOL_SERVE_ROWS:
+        raise AssertionError(f"batch-1 vs batch-16 rows differ by {worst:.3e}"
+                             f" of max, above {TOL_SERVE_ROWS}")
+    # latency of submit -> flush (results on the host) per (scenario,
+    # bucket): the graph path and eager dispatch on the same card
+    eager = serve.ControllerService.from_policy(
+        serve.load_policy(ckpt), capture=False)
+    latency = {}
+    for name in names:
+        for bucket in serve.DEFAULT_BUCKETS:
+            rows = obs[name][:bucket]
+            for mode, service in (("graph", svc), ("eager", eager)):
+                times = []
+                for rep in range(203):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for row in rows:
+                        service.submit(name, row)
+                    service.flush()
+                    if rep >= 3:  # warm-up
+                        times.append((time.perf_counter() - t0) * 1e3)
+                p50, p99 = percentile(times, 50), percentile(times, 99)
+                latency[f"{name} {bucket} {mode}"] = {
+                    "p50_ms": p50, "p99_ms": p99,
+                    "requests_per_s": bucket / p50 * 1e3}
+            g, e = (latency[f"{name} {bucket} {m}"] for m in ("graph",
+                                                               "eager"))
+            print(f"serving latency {name} bucket {bucket} ({card}): graph "
+                  f"p50 {g['p50_ms']:.4f} ms p99 {g['p99_ms']:.4f} ms "
+                  f"({g['requests_per_s']:.0f} requests/s); eager p50 "
+                  f"{e['p50_ms']:.4f} ms p99 {e['p99_ms']:.4f} ms "
+                  f"({e['requests_per_s']:.0f} requests/s)")
+    return latency
 
 
 def check_reverts(label: str, frunner, rec: dict, reverts: dict,
@@ -1146,6 +1768,9 @@ def main() -> int:
            plain16, TOL_MODEL_BF16)
     del params16, got16, plain16
 
+    elapsed("phase 3: LM kernel gradients at hymba's training shape")
+    lm_grad_parity(lm_cfg, gen, dev, errs)
+
     # --- 4. time each kernel at its path's shape (16 envs, float32) ----------
     elapsed("phase 4: timing")
     record = {}
@@ -1166,7 +1791,8 @@ def main() -> int:
                 "kernel": lambda: rhs.fused_navier_stokes_rhs(
                     *args, instance="cluster", **kw),
                 "kernel two_pass": lambda: rhs.fused_navier_stokes_rhs(
-                    *args, instance="two_pass", **kw)})
+                    *args, instance="two_pass", **kw)}, windows=20, alone=10,
+                plain_windows=10)
             bound = rhs_bound_ms(*args)
             clu, two = ms["kernel"], ms["kernel two_pass"]
             print(f"  fused RHS {label} {tname} ({card}): cluster instance "
@@ -1392,7 +2018,7 @@ def main() -> int:
             "kernel float32 (CUDA cores)": lambda:
                 flash_attention.flash_attention(q32, k32, v32, window=window),
             "library": lambda: sdpa(q, k, v, attn_mask=mask,
-                                    enable_gqa=True)})
+                                    enable_gqa=True)}, plain_windows=10)
         parity("library call scaled_dot_product_attention(band mask, "
                "enable_gqa) vs plain", sdpa(q, k, v, attn_mask=mask,
                                             enable_gqa=True),
@@ -1437,7 +2063,7 @@ def main() -> int:
             calls[f"kernel {kind}"] = functools.partial(
                 linear_scan.linear_scan, qt, kt, vt, wt, None, st,
                 decay_before_read=True, instance=kind)
-        ms, call_ms = time_calls(calls)
+        ms, call_ms = time_calls(calls, plain_windows=10)
         out_bytes = vt.numel() * 2 + s0.numel() * 4  # o bf16, S_final f32
         bound = bound_ms(f"linear_scan {label}",
                          nbytes(qt, kt, vt, wt) + out_bytes
@@ -1456,6 +2082,9 @@ def main() -> int:
               "gated linear recurrence")
         record[f"linear_scan {kind}"] = dict(ms=ms, call_ms=call_ms,
                                              library_ms=None, bound=bound)
+
+    elapsed("phase 4: LM kernels at hymba's training shape, with gradients")
+    train_fa, train_ls = lm_training_times(lm_cfg, gen, dev, card)
     for name, rec in record.items():
         b, by = rec["bound"]
         print(f"{name} ({card}): device time {rec['ms']['kernel']:.7f} ms "
@@ -1521,17 +2150,24 @@ def main() -> int:
     # the heterogeneous fleet through `fleet.make_fleet_runner` (device
     # None: the GPU): 32 envs apportioned by static step cost with at
     # least 8 each, one shared multitask policy; one pipelined iteration
-    # (the prologue rollout, then update 0 and rollout 1), one more
-    # pipelined iteration alone (a rollout and an update), then one
+    # (the prologue rollout, then update 0 and rollout 1), then one
     # synchronous iteration of a second runner for the timings and every
     # scenario's evaluation episode
     per_rollout = {"hit": cfg.n_actions * cfg.n_substeps * 5,
                    "chan": chan.n_actions * chan.n_substeps * 5}
     if per_rollout != {"hit": 3250, "chan": 2600}:
         raise AssertionError(f"fleet episode arithmetic gives {per_rollout}")
-    fleet_launches = fleet_phase(counters, per_rollout, card)
-    for name, n_ in zip(names[:4], fleet_launches[:4]):
-        by_path[name]["fleet"] = n_
+    fleet_ckpt = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        fleet_launches, prunner = fleet_phase(counters, per_rollout, card,
+                                              fleet_ckpt)
+        for name, n_ in zip(names[:4], fleet_launches[:4]):
+            by_path[name]["fleet"] = n_
+        elapsed("phase 5: serving the fleet's controllers")
+        serve_phase(prunner, counters, card)
+        del prunner
+    finally:
+        shutil.rmtree(fleet_ckpt, ignore_errors=True)
 
     elapsed("phase 5: hymba-1.5b serving")
     # hymba-1.5b serving: bf16 weights from a seed (cast once, as served),
@@ -1637,6 +2273,15 @@ def main() -> int:
     by_path["flash_attention"] = {"hymba-1.5b": lm_launches[4]}
     for kind, n_ in scan_instances.items():
         by_path[f"linear_scan {kind}"] = {"hymba-1.5b": n_}
+
+    elapsed("phase 5: hymba-1.5b training")
+    del params, caches, logits  # the served model's: training needs the room
+    trained = lm_train_phase(counters, card)
+    by_path["flash_attention"]["hymba-1.5b training"] = \
+        trained["launches"][4]
+    by_path["linear_scan chunked"]["hymba-1.5b training"] = \
+        trained["launches"][5]
+    by_path["linear_scan step"]["hymba-1.5b training"] = 0
     launches = {name: sum(p.values()) for name, p in by_path.items()}
 
     # --- 5b. where the paths' time goes (after the counts were read) ---------
@@ -1654,21 +2299,10 @@ def main() -> int:
                    lambda: ppo.update_epoch(runner.policy, runner.opt,
                                             runner.ppo_cfg, traj, adv, ret),
                    card)
-    t0 = time.perf_counter()
-    chan_env.step(chan_state, chan_action)
-    torch.cuda.synchronize()
-    print(f"one channel_wm RL step of 16 envs, unprofiled: "
-          f"{(time.perf_counter() - t0) * 1e3:.3f} ms wall")
-    chan_launches = profile_window(
-        "one channel_wm RL step of 16 envs (env.step)",
-        lambda: chan_env.step(chan_state, chan_action), card)
-    if chan_launches is not None:
-        per_step = chan.n_substeps * 5
-        print(f"  channel_wm: {chan_launches} launches in the trace over "
-              f"{per_step} RHS calls, {chan_launches / per_step:.1f} per RHS "
-              f"(the profiler may drop a few; PR 16: 675.5, with a copy of "
-              f"the gradient's rows before each smagorinsky_nut)")
+    # the channel's RL step is timed and profiled in the fleet phase (its
+    # 8-env sub-fleet): a trace of ~88,000 launches takes tens of seconds
     prompt = lm_batch(3, 4, 2048, lm_cfg.vocab)["tokens"].to(dev)
+    params = api.init(serve_cfg, seed=0)
     profile_window("one hymba-1.5b prefill of 4 x 2048 tokens (api.prefill)",
                    lambda: api.prefill(params, serve_cfg, {"tokens": prompt},
                                        cache_len=2048 + n_new), card)
@@ -1723,7 +2357,10 @@ def main() -> int:
     record["flash_attention"]["extra"] = {"float32_instance": {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "max_abs_err": errs["flash_attention float32"],
-        "ms": record["flash_attention"]["ms"]["kernel float32 (CUDA cores)"]}}
+        "ms": record["flash_attention"]["ms"]["kernel float32 (CUDA cores)"]},
+        "training": {**train_fa, **training_errs(errs, "flash_attention")}}
+    rec["extra"]["training"] = {**train_ls,
+                                **training_errs(errs, "linear_scan")}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -100,15 +100,21 @@ class IntegrityError(RuntimeError):
     pass
 
 
-def restore_arrays(directory: str, step: int, *, verify: bool = True
-                   ) -> tuple[list[np.ndarray], dict]:
-    """Load host arrays + manifest for `step`; verifies sha256 of every leaf."""
+def restore_arrays(directory: str, step: int, *, verify: bool = True,
+                   select=None) -> tuple[list[np.ndarray | None], dict]:
+    """Load host arrays + manifest for `step`; verifies sha256 of every leaf
+    read.  With `select` (key path -> bool) only the leaves it accepts are
+    read; the others come back as None, their files untouched."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
     arrays = []
-    for i, (shape, dtype, digest) in enumerate(
-            zip(manifest["shapes"], manifest["dtypes"], manifest["sha256"])):
+    for i, (key, shape, dtype, digest) in enumerate(
+            zip(manifest["keys"], manifest["shapes"], manifest["dtypes"],
+                manifest["sha256"])):
+        if select is not None and not select(key):
+            arrays.append(None)
+            continue
         a = np.load(os.path.join(path, f"{i}.npy"))
         if list(a.shape) != shape or str(a.dtype) != dtype:
             raise IntegrityError(f"leaf {i}: shape/dtype mismatch in {path}")

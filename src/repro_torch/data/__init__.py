@@ -1,4 +1,4 @@
 """Synthetic data of the port (counterpart of `repro.data`)."""
-from .synthetic import lm_batch
+from .synthetic import TokenStream, lm_batch, make_batch_for
 
-__all__ = ["lm_batch"]
+__all__ = ["TokenStream", "lm_batch", "make_batch_for"]

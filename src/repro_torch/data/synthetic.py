@@ -1,14 +1,22 @@
-"""Deterministic synthetic token batches (port of `repro.data.synthetic`'s
-`_zipf_tokens` and `lm_batch`).
+"""Deterministic synthetic token batches (port of `repro.data.synthetic`).
 
-The tokens come from numpy's generator exactly as in the reference, so the
-same seed gives the same tokens in both packages; they are returned as
-int64 CPU tensors (PyTorch's index type).
+A production run would stream tokenized shards; offline a reproducible
+Zipf-ish token stream stands in, whose cursor is part of the checkpoint (a
+resumed run replays the exact same batches).  The tokens come from numpy's
+generator exactly as in the reference, so the same seed gives the same
+tokens in both packages; they are returned as int64 CPU tensors (PyTorch's
+index type).  Only the decoder-only branch of `make_batch_for` is ported:
+the enc-dec and vision branches raise, as `models.lm` does for those
+architectures.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from ..models.config import ArchConfig
 
 
 def _zipf_tokens(rng: np.random.Generator, shape: tuple[int, ...], vocab: int
@@ -24,3 +32,35 @@ def lm_batch(seed: int, batch: int, seq: int, vocab: int) -> dict:
     stream = torch.from_numpy(_zipf_tokens(np.random.default_rng(seed),
                                            (batch, seq + 1), vocab))
     return {"tokens": stream[:, :-1], "labels": stream[:, 1:]}
+
+
+def make_batch_for(cfg: ArchConfig, seed: int, batch: int, seq: int) -> dict:
+    """A batch shaped for `cfg`: the decoder-only (tokens, labels)."""
+    if cfg.is_encdec or cfg.vision_dim:
+        raise NotImplementedError(f"{cfg.name}: enc-dec and vision batches "
+                                  f"are not ported")
+    return lm_batch(seed, batch, seq, cfg.vocab)
+
+
+@dataclasses.dataclass
+class TokenStream:
+    """Checkpointable deterministic batch iterator: batch k of the stream is
+    `make_batch_for(cfg, seed + k, batch, seq)`."""
+
+    cfg: ArchConfig
+    batch: int
+    seq: int
+    seed: int = 0
+    cursor: int = 0
+
+    def next(self) -> dict:
+        b = make_batch_for(self.cfg, self.seed + self.cursor, self.batch,
+                           self.seq)
+        self.cursor += 1
+        return b
+
+    def state_dict(self) -> dict:
+        return {"seed": self.seed, "cursor": self.cursor}
+
+    def load_state_dict(self, s: dict) -> None:
+        self.seed, self.cursor = int(s["seed"]), int(s["cursor"])

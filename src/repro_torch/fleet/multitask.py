@@ -28,6 +28,7 @@ which trains the shared trunk on all scenarios at once, and
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -112,11 +113,20 @@ def init(gen: torch.Generator, cfg: MultiTaskConfig) -> dict:
 
 
 # --- forward -----------------------------------------------------------------
+@functools.lru_cache(maxsize=64)
+def _gains(gains: tuple[float, ...], dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """The declared channel gains as a tensor, made once per (gains, dtype,
+    device): a host-to-device copy on every forward would break the
+    serving path's CUDA graph capture."""
+    return torch.tensor(gains, dtype=dtype, device=device)
+
+
 def _features(head: HeadSpec, obs: torch.Tensor) -> torch.Tensor:
     """(..., E, *spatial, C) -> (..., E, F) with declared gains applied."""
     x = obs
     if any(g != 1.0 for g in head.gains):
-        x = x * torch.tensor(head.gains, dtype=x.dtype, device=x.device)
+        x = x * _gains(head.gains, x.dtype, x.device)
     lead = tuple(x.shape[: x.ndim - (len(head.spatial) + 1)])
     return x.reshape(lead + (head.in_features,))
 
@@ -136,7 +146,18 @@ def actor_mean(params, cfg: MultiTaskConfig, name: str,
     p = params["heads"][name]
     logits = _head_scalar(params["shared"]["actor"], p["actor_in"],
                           p["actor_out"], h, obs)
-    return h.act_low + (h.act_high - h.act_low) * torch.sigmoid(logits)
+    return h.act_low + (h.act_high - h.act_low) * _logistic(logits)
+
+
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)), elementwise.  Written out because `torch.sigmoid`
+    on the CPU computes the elements past the last full vector another way,
+    so a row's action would depend (by an ulp) on its place in the batch,
+    and served batch-1 and batch-N rows would differ.  exp only ever sees
+    -|x|, so neither branch overflows and the gradient stays finite at any
+    logit."""
+    e = torch.exp(-x.abs())
+    return torch.where(x >= 0, 1.0 / (1.0 + e), e / (1.0 + e))
 
 
 def value(params, cfg: MultiTaskConfig, name: str,

@@ -7,9 +7,12 @@ GQA (query head h reads kv head h // (Hq / Hkv)), causal masking in the
 decode convention (q holds the last Sq of the Skv positions), a sliding
 window (key k is seen by query q iff k > q - window), logit softcap
 (cap * tanh(x / cap)), an explicit scale, ragged Sq and Skv, rows with no
-valid key giving 0, float32 statistics and the output in q's dtype.  It is
-forward only: on a CUDA tensor it raises if grad mode is on and an input
-requires grad (the backward waits for the training slice).
+valid key giving 0, float32 statistics and the output in q's dtype.  Where
+grad mode is on and an input requires grad, the call goes through
+`FlashAttention` (a `torch.autograd.Function`): the forward is the kernel,
+the backward the vjp of `mha_chunked` at its default `block_k`, recomputed
+from the saved q, k, v, as the reference's `ops._fa_bwd` does (the JAX
+package has no backward kernel).
 
 The instance follows the dtype (`instance`):
   bfloat16 on CUDA  "tensor_core": `csrc/flash_attention_tc.cu`, wgmma in
@@ -201,11 +204,26 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be None or >= 1, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be None or > 0, got {softcap}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError("the flash attention kernel is forward only: run "
-                           "it under torch.no_grad() or on inputs that do "
-                           "not require grad")
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward of `_forward` (the kernel on a CUDA tensor), the backward
+    of `mha_chunked` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      scale=scale)
+        return _forward(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = mha_chunked(*inputs, **ctx.kw)
+        return (*torch.autograd.grad(out, inputs, grad), None, None, None,
+                None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -216,7 +234,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype.  On the CPU the plain `mha_chunked`; on a CUDA tensor the kernel
     of its dtype (`instance`), which takes strided views whose last axis is
     contiguous (the model's head-transposed q, k, v) and writes a
-    contiguous output."""
+    contiguous output.  Differentiable through `FlashAttention`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    return _forward(q, k, v, causal=causal, window=window, softcap=softcap,
+                    scale=scale)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool, window: int | None, softcap: float | None,
+             scale: float | None) -> torch.Tensor:
+    """The plain version on the CPU, the kernel on a CUDA tensor."""
     if q.device.type == "cpu":
         return mha_chunked(q, k, v, causal=causal, window=window,
                            softcap=softcap, scale=scale)

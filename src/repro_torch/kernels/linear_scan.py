@@ -12,9 +12,13 @@ PyTorch versions.
 (B, T, dk), v (B, T, dv), each float32 or bfloat16 on its own (the SSM
 branch hands q and v in bf16, k and w in f32), all math in float32; u (dk,)
 or None (None: no bonus scaling, u = 1), s0 (B, dk, dv) or None (zeros);
-any T >= 1; o comes back in q's dtype and S_final in float32.  It is
-forward only: on a CUDA tensor it raises if grad mode is on and an input
-requires grad.
+any T >= 1; o comes back in q's dtype and S_final in float32.  Where grad
+mode is on and an input requires grad, the call goes through `LinearScan`
+(a `torch.autograd.Function`): the forward is the kernel, the backward the
+vjp of `linear_scan_chunked` at its default chunk, recomputed from the
+saved inputs with the forward's reading of u and s0 (None: no bonus
+scaling, a zero state), as the reference's `ops._ls_bwd` does (the JAX
+package has no backward kernel).
 
 Two instances, picked by shape (`pick_instance`): "chunked"
 (`linear_scan_chunked.cu`, chunk-parallel over T in three launches: each
@@ -193,11 +197,38 @@ def _check_inputs(q, k, v, w, u, s0) -> None:
                               or x.device != q.device):
             raise ValueError(f"{name} must be {shape} on {q.device}, got "
                              f"{tuple(x.shape)} on {x.device}")
-    if torch.is_grad_enabled() and any(
-            x is not None and x.requires_grad for x in (q, k, v, w, u, s0)):
-        raise RuntimeError("the linear scan kernel is forward only: run it "
-                           "under torch.no_grad() or on inputs that do not "
-                           "require grad")
+
+
+class LinearScan(torch.autograd.Function):
+    """The forward of `_forward` (a kernel on a CUDA tensor), the backward of
+    `linear_scan_chunked` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, w, u, s0, decay_before_read, chunk, instance):
+        ctx.save_for_backward(q, k, v, w, u, s0)
+        ctx.decay_before_read = decay_before_read
+        return _forward(q, k, v, w, u, s0,
+                        decay_before_read=decay_before_read, chunk=chunk,
+                        instance=instance)
+
+    @staticmethod
+    def backward(ctx, grad_o, grad_s):
+        saved = ctx.saved_tensors
+        inputs = [x.detach().requires_grad_(need) if x is not None else None
+                  for x, need in zip(saved, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            o, s = linear_scan_chunked(
+                *inputs, decay_before_read=ctx.decay_before_read)
+            wrt = [x for x in inputs if x is not None and x.requires_grad]
+            # S_final depends on neither q nor u: only the outputs that the
+            # inputs asked for reach
+            outs = [(y, g) for y, g in ((o.to(saved[0].dtype), grad_o),
+                                        (s, grad_s)) if y.requires_grad]
+            grads = iter(torch.autograd.grad(
+                [y for y, _ in outs], wrt, [g for _, g in outs],
+                allow_unused=True))
+        return (*(next(grads) if x is not None and x.requires_grad else None
+                  for x in inputs), None, None, None)
 
 
 def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -210,7 +241,18 @@ def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `linear_scan_chunked` with `chunk`; on a CUDA tensor a kernel, which
     takes its own chunk size: the instance `pick_instance` gives for the
     shape, or the one named by `instance` ("step" or "chunked", for
-    comparing the two)."""
+    comparing the two).  Differentiable through `LinearScan`."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (q, k, v, w, u, s0)):
+        return LinearScan.apply(q, k, v, w, u, s0, decay_before_read, chunk,
+                                instance)
+    return _forward(q, k, v, w, u, s0, decay_before_read=decay_before_read,
+                    chunk=chunk, instance=instance)
+
+
+def _forward(q, k, v, w, u, s0, *, decay_before_read: bool, chunk: int,
+             instance: str | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version on the CPU, a kernel on a CUDA tensor."""
     if q.device.type == "cpu":
         o, s = linear_scan_chunked(q, k, v, w, u, s0,
                                    decay_before_read=decay_before_read,

@@ -4,8 +4,9 @@
   attention  GQA + RoPE + SWA + softcap; train/prefill/decode paths
   ssm        Mamba-2-style selective SSM (hymba's branch)
   blocks     norm + mixer + FFN block assembly, per-layer kinds, caches
-  lm         decoder-only assembly, serving entry points, weight loading
-  api        the entry points a server calls
+  lm         decoder-only assembly, loss and training step, serving entry
+             points, weight loading
+  api        the entry points a trainer or a server calls
 
 Only what the registered architectures (`repro_torch.configs.ARCH_NAMES`)
 run is ported: the MoE FFN, the RWKV mixer, enc-dec and the vision

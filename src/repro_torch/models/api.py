@@ -1,15 +1,15 @@
-"""The serving entry points (port of the decoder-only parts of
-`repro.models.api`).
+"""The training and serving entry points (port of the decoder-only parts
+of `repro.models.api`).
 
 `init` and `init_caches` take `device=None`, which means the GPU, and raise
-without one unless the caller asks for the CPU (`device="cpu"`).  `prefill`
-and `decode_step` run where the parameters are.
+without one unless the caller asks for the CPU (`device="cpu"`).  `loss`,
+`train_step`, `prefill` and `decode_step` run where the parameters are.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import resolve_device
+from .. import optim, resolve_device
 from . import lm
 from .config import ArchConfig
 
@@ -24,6 +24,17 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> torch.nn.Module:
     with torch.device(dev):
         params = lm.init(gen, cfg)
     return params.to(getattr(torch, cfg.param_dtype))
+
+
+def loss(params, cfg: ArchConfig, batch: dict):
+    """batch: {"tokens", "labels"} -> (scalar loss, metrics)."""
+    return lm.lm_loss(params, cfg, batch)
+
+
+def train_step(params, opt_state: optim.AdamState, batch: dict,
+               cfg: ArchConfig, adam_cfg: optim.AdamConfig | None = None):
+    """One Adam step on `batch`, in place -> (params, opt_state, metrics)."""
+    return lm.train_step(params, opt_state, batch, cfg, adam_cfg)
 
 
 def prefill(params, cfg: ArchConfig, batch: dict,

@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly, serving path (port of the parts of
-`repro.models.lm` that prefill and greedy decoding need).
+"""Decoder-only LM assembly: training and serving (port of
+`repro.models.lm` for the decoder-only architectures the port registers).
 
 Layers come in groups: group size = the architecture's layer-kind period
 (hymba: global attention every 8th layer, so groups of 8 blocks b0..b7).
@@ -8,15 +8,21 @@ The reference stacks each block's parameters over the groups and
 pass a Python loop, so parameter names keep the JAX leaf paths with the
 group index in front (`layers.{m}.b{j}.mixer.attn.wq.w`).
 
+Training remats each layer group (`cfg.remat`: the group runs under
+`torch.utils.checkpoint`, as the reference's `jax.checkpoint(group_fn)`),
+and the cross-entropy runs in sequence chunks of `cfg.loss_chunk`, one
+checkpoint each, without ever holding the (B, S, V) logits.
+
 Entry points:
     init(gen, cfg)                        parameters (a `ParamTree`, f32)
+    lm_loss(params, cfg, batch)           scalar loss + metrics
+    train_step(params, opt, batch, cfg)   one Adam step, in place
     prefill(params, cfg, tokens, ...)     (last-token logits, caches)
     decode_step(params, cfg, token, c)    (logits, caches)
     greedy_generate(params, cfg, p, n)    (B, n) greedy tokens
     load_jax_params(params, jax_params)   carry the reference's weights over
 
-The loss, the training step and the MoE dense prefix / llava projector are
-not ported yet.
+The MoE dense prefix and llava projector are not ported yet.
 """
 from __future__ import annotations
 
@@ -24,8 +30,9 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from .. import nn
+from .. import nn, optim
 from . import blocks
 from .config import ArchConfig
 
@@ -138,10 +145,23 @@ def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor
     return x
 
 
+def _train_group(p_m, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """One layer group's blocks in train mode (no caches)."""
+    for j, kind in enumerate(group_kinds(cfg)):
+        x, _ = blocks.apply_block(p_m[f"b{j}"], cfg, kind, x, "train")
+    return x
+
+
 def forward_hidden(params, cfg: ArchConfig, x: torch.Tensor,
                    mode: str = "train", caches: dict | None = None
                    ) -> tuple[torch.Tensor, dict | None]:
-    """Embedded input (B, S, D) -> (hidden, new caches; None in train)."""
+    """Embedded input (B, S, D) -> (hidden, new caches; None in train).
+    With `cfg.remat`, each group in train mode keeps only its input for
+    the backward pass and runs again there."""
+    if mode == "train" and cfg.remat and torch.is_grad_enabled():
+        for p_m in params["layers"]:
+            x = checkpoint(_train_group, p_m, cfg, x, use_reentrant=False)
+        return x, None
     kinds = group_kinds(cfg)
     new_layers = []
     for m, p_m in enumerate(params["layers"]):
@@ -171,6 +191,81 @@ def logits_for(params, cfg: ArchConfig, hidden: torch.Tensor
 
 def _device(params) -> torch.device:
     return params["embed"]["table"].device
+
+
+# --- loss ------------------------------------------------------------------------------
+def _chunk_nll(params, cfg: ArchConfig, hidden: torch.Tensor,
+               labels: torch.Tensor, mask: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of masked -log p(label), sum of mask) over one sequence chunk."""
+    logits = logits_for(params, cfg, hidden)            # (B, C, V) float32
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum((lse - ll) * mask), torch.sum(mask)
+
+
+def chunked_ce(params, cfg: ArchConfig, hidden: torch.Tensor,
+               labels: torch.Tensor, mask: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy over sequence chunks of `cfg.loss_chunk`, each under a
+    checkpoint with `cfg.remat`, so at most one chunk's (B, C, V) logits
+    exist at a time.  hidden (B, S, D); labels, mask (B, S).  Returns
+    (nll_sum, count)."""
+    s = hidden.shape[1]
+    chunk = min(cfg.loss_chunk, s)
+    remat = cfg.remat and torch.is_grad_enabled()
+    nll_sum = torch.zeros((), device=hidden.device)
+    count = torch.zeros((), device=hidden.device)
+    for start in range(0, s, chunk):
+        piece = (hidden[:, start:start + chunk],
+                 labels[:, start:start + chunk], mask[:, start:start + chunk])
+        if remat:
+            nll, n = checkpoint(_chunk_nll, params, cfg, *piece,
+                                use_reentrant=False)
+        else:
+            nll, n = _chunk_nll(params, cfg, *piece)
+        nll_sum, count = nll_sum + nll, count + n
+    return nll_sum, count
+
+
+def lm_loss(params, cfg: ArchConfig, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """batch: {"tokens" (B, S), "labels" (B, S), optional "mask"} -> (loss,
+    metrics).  The MoE auxiliary terms are zeros: no registered
+    architecture has an MoE layer."""
+    _check_ported(cfg)
+    dev = _device(params)
+    tokens, labels = batch["tokens"].to(dev), batch["labels"].to(dev)
+    x = embed_tokens(params, cfg, tokens)
+    x, _ = forward_hidden(params, cfg, x, mode="train")
+    mask = batch.get("mask")
+    mask = (torch.ones(labels.shape, device=dev) if mask is None
+            else mask.to(dev, torch.float32))
+    nll_sum, count = chunked_ce(params, cfg, x, labels, mask)
+    ce = nll_sum / torch.clamp(count, min=1.0)
+    lb = z = torch.zeros((), device=dev)
+    loss = ce + 0.01 * lb + 1e-3 * z
+    return loss, {"loss": loss, "ce": ce, "moe_lb": lb, "router_z": z,
+                  "tokens": count}
+
+
+def train_step(params, opt_state: optim.AdamState, batch: dict,
+               cfg: ArchConfig, adam_cfg: optim.AdamConfig | None = None):
+    """One synchronous training step: the loss and its gradient with
+    respect to every parameter (which are made to require grad), the
+    gradient's global norm, then one Adam step in place.  Returns (params,
+    opt_state, metrics), the metrics detached on the device."""
+    adam_cfg = adam_cfg or optim.AdamConfig(lr=3e-4, grad_clip=1.0)
+    plist = list(params.parameters())
+    with torch.enable_grad():
+        params.requires_grad_(True)
+        loss, metrics = lm_loss(params, cfg, batch)
+        grads = torch.autograd.grad(loss, plist)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["grad_norm"] = optim.global_norm(grads)
+    optim.adam_update(adam_cfg, plist, grads, opt_state,
+                      norm=metrics["grad_norm"])
+    return params, opt_state, metrics
 
 
 # --- serving -------------------------------------------------------------------------

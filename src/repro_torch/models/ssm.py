@@ -116,12 +116,15 @@ def apply_seq(params, cfg: ArchConfig, x: torch.Tensor,
     xv, z, bmat, cmat, dt, w, new_tail = _branch_inputs(params, cfg, x,
                                                         conv_tail)
 
-    # per-head gated linear scan: q=C, k=dt*B, v=x, decay w broadcast over N
-    q = cmat.permute(0, 2, 1, 3).reshape(b * h, t, n)
-    k = (bmat * dt[..., None]).permute(0, 2, 1, 3).reshape(b * h, t, n)
-    v = xv.permute(0, 2, 1, 3).reshape(b * h, t, pdim)
+    # per-head gated linear scan: q=C, k=dt*B, v=x, decay w broadcast over
+    # N; the kernel takes contiguous operands, and at b == 1 each reshape
+    # is a strided view (at t == 1 the decay's is a stride-0 one)
+    q = cmat.permute(0, 2, 1, 3).reshape(b * h, t, n).contiguous()
+    k = (bmat * dt[..., None]).permute(0, 2, 1, 3).reshape(
+        b * h, t, n).contiguous()
+    v = xv.permute(0, 2, 1, 3).reshape(b * h, t, pdim).contiguous()
     wfull = w.permute(0, 2, 1)[..., None].expand(b, h, t, n).reshape(
-        b * h, t, n).contiguous()  # at t == 1 the reshape is a stride-0 view
+        b * h, t, n).contiguous()
     s0_flat = s0.reshape(b * h, n, pdim) if s0 is not None else None
     o, s_fin = kops.gated_linear_scan(
         q, k, v, wfull, None, s0_flat, decay_before_read=True,

@@ -28,8 +28,8 @@ class ParamTree(torch.nn.Module):
     (`layers.0.b0.mixer.attn.wq.w`).  `tree["wq"]["w"]` and `"b" in tree`
     work as on the JAX dicts, which lets the functional layers take either.
     Parameters are created with `requires_grad=False` unless asked: the
-    port's LM path serves (its kernels are forward only); the fleet's
-    multitask policy trains.
+    LM's serving path needs no gradients (`lm.train_step` turns them on);
+    the fleet's multitask policy trains.
     """
 
     def __init__(self, tree: dict, requires_grad: bool = False):

@@ -561,8 +561,15 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):  # head_dim not the unit-stride axis
         fa.flash_attention(q, q.transpose(2, 3).contiguous().transpose(2, 3),
                            q)
-    with pytest.raises(RuntimeError):
-        fa.flash_attention(q.requires_grad_(), q, q)
+    # an input that requires grad: the kernel forward, the backward of
+    # mha_chunked (it used to raise: the kernels were forward only)
+    qg = q.clone().requires_grad_()
+    out = fa.flash_attention(qg, q, q)
+    grad = torch.randn_like(out)
+    qp = q.clone().requires_grad_()
+    assert _rel(torch.autograd.grad(out, qg, grad)[0],
+                torch.autograd.grad(fa.mha_chunked(qp, q, q), qp, grad)[0]) \
+        <= CARD_TOL["float32"]
     # bf16 views that TMA cannot read raise; nothing is copied
     h = torch.randn((1, 2, 32, 20), device="cuda").bfloat16()
     with pytest.raises(ValueError):  # rows 40 bytes apart
@@ -580,8 +587,64 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
         ls.linear_scan(x, x, v, x.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError):
         ls.linear_scan(x, x, v, x, s0=torch.zeros((2, 16, 8), device="cuda"))
-    with pytest.raises(RuntimeError):
-        ls.linear_scan(x.requires_grad_(), x, v, x)
+    xg, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    o, s_fin = ls.linear_scan(xg, xg, v, x)
+    o_p, s_p = ls.linear_scan_chunked(xp, xp, v, x)
+    go, gs = torch.randn_like(o), torch.randn_like(s_fin)
+    assert _rel(torch.autograd.grad((o, s_fin), xg, (go, gs))[0],
+                torch.autograd.grad((o_p, s_p), xp, (go, gs))[0]) \
+        <= CARD_TOL["float32"]
     with torch.no_grad():
         o, _ = ls.linear_scan(x, x, v, x)
     assert o.shape == (2, 5, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_gradients_match_plain(dtype):
+    """On the card, through the autograd Functions: flash attention's
+    gradients (kernel forward, `mha_chunked` backward) at a window whose
+    rows have whole masked kv blocks (S > window + block_k) and globally,
+    and the chunked scan's (GLA read, s0 and its gradient), against
+    autograd through the plain forms, within the forward's pins."""
+    _need_gpu()
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(2)
+    for window in (64, None):
+        q, k, v = (torch.randn(shape, generator=gen).to("cuda", tdt)
+                   for shape in ((2, 4, 700, 64), (2, 2, 700, 64),
+                                 (2, 2, 700, 64)))
+        grad = torch.randn((2, 4, 700, 64), generator=gen).to("cuda", tdt)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        plain = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = fa.flash_attention.launches
+        got = torch.autograd.grad(fa.flash_attention(*ins, window=window),
+                                  ins, grad)
+        assert fa.flash_attention.launches == before + 1
+        want = torch.autograd.grad(
+            fa.mha_chunked(*plain, window=window), plain, grad)
+        for a, b in zip(got, want):
+            assert a.dtype == tdt
+            assert _rel(a, b) <= FLASH_CARD_TOL[dtype]
+    b, t, dk, dv = 50, 300, 16, 64
+    qs = torch.randn((b, t, dk), generator=gen).to("cuda", tdt)
+    ks = (0.25 * torch.randn((b, t, dk), generator=gen)).to("cuda")
+    vs = torch.randn((b, t, dv), generator=gen).to("cuda", tdt)
+    ws = torch.exp(-0.5 * torch.rand((b, t, dk), generator=gen)).to("cuda")
+    s0 = torch.randn((b, dk, dv), generator=gen).to("cuda")
+    go = torch.randn((b, t, dv), generator=gen).to("cuda", tdt)
+    gs = torch.randn((b, dk, dv), generator=gen).to("cuda")
+    ins = [x.clone().requires_grad_() for x in (qs, ks, vs, ws, s0)]
+    plain = [x.clone().requires_grad_() for x in (qs, ks, vs, ws, s0)]
+    before = dict(ls.linear_scan.instance_launches)
+    o, s_fin = ls.linear_scan(*ins[:4], None, ins[4], decay_before_read=True)
+    assert ls.linear_scan.instance_launches == dict(
+        before, chunked=before["chunked"] + 1)
+    got = torch.autograd.grad((o, s_fin), ins, (go, gs))
+    o_p, s_p = ls.linear_scan_chunked(*plain[:4], None, plain[4],
+                                      decay_before_read=True)
+    want = torch.autograd.grad((o_p.to(tdt), s_p), plain, (go, gs))
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype
+        assert _rel(a, w) <= CARD_TOL[dtype if a.dtype == tdt
+                                      else "float32"]

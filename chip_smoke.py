@@ -94,8 +94,9 @@ In order, and any failure exits non-zero:
      sub-fleet: none in the channel and Burgers rollouts, none in any
      evaluation (the mean action), and the synchronous return no higher
      than the reverted share allows (HIT's exploratory steps are reverted:
-     see PERF.md); then one RL step of each sub-fleet is timed, and the
-     channel's and Burgers' profiled for their launches per RHS;
+     see PERF.md); then one RL step of each sub-fleet is timed, and
+     Burgers' step and one RK substep of the channel's (5 RHS calls)
+     profiled for their launches per RHS;
      the fleet's trained controllers served from the pipelined runner's
      newest checkpoint (`serve.load_service`, one CUDA graph per (scenario,
      bucket)) on observations its envs produced: two passes of 1, 2, 3, 5,
@@ -105,6 +106,23 @@ In order, and any failure exits non-zero:
      was sent, no RL kernel launched; batch-1 rows against a batch of 16;
      p50 / p99 latency of submit -> flush per (scenario, bucket), graph
      replay and eager dispatch;
+     the fleet across ranks on the one card (`distributed_phase`): the
+     collectives (`core.collectives.all_gather_cat`, `core.compression`'s
+     `compressed_psum` in its three codecs and `chunked_psum`) on a
+     one-rank NCCL group, bit for bit their single-process values; then,
+     under `python -m torch.distributed.run --standalone` of this script's
+     `--rank-worker` mode (ranks sharing the card use gloo), `rl_train`
+     on hit_les_24dof with 16 envs over 2 ranks (one iteration) and the
+     fleet at 8 / 8 / 16 envs over 3 ranks (each scenario padded to 9 /
+     9 / 18, one synchronous iteration): every rank's launches exact
+     (3,250 RHS, 2,600 of each channel kernel per rank and rollout) and
+     summed over the ranks by an all-reduce, params, Adam state and
+     broker bitwise equal on every rank, update_ok 1, every return_norm
+     in [-1, 1], no revert in the channel and Burgers rollouts, the
+     fleet's gathered step-0 observations, actions and rewards within
+     TOL_FLEET_ROWS of the one-process synchronous iteration above (and
+     the rows one env off outside it), and env-steps/s beside that
+     iteration's;
      hymba-1.5b serving (bf16 weights from a seed,
      `lm.greedy_generate` of 32 new tokens for 4 prompts of 2,048 Zipf
      tokens, then for 4 of 700) must launch flash_attention 32 times, all on
@@ -129,7 +147,9 @@ In order, and any failure exits non-zero:
      `{"ok": true, "device": {...}}`.
 Each phase's start is printed with the run's time so far.
 
-It needs a CUDA device and the repository's `src/` beside it.
+It needs a CUDA device and the repository's `src/` beside it.  The
+kernels are built by phase 2, before any rank starts: the ranks load them
+from the shared build directory.
 """
 from __future__ import annotations
 
@@ -198,6 +218,17 @@ TOL_SERVE_ROWS = 1e-5
 # the sound path; the grad norm tells both).
 TOL_TRAIN_LOSS = 4e-4
 TOL_TRAIN_GRAD_NORM = 5e-3
+# The fleet's first step over 3 ranks against one process of the same seed:
+# a rank rolls 3 of 8 (or 6 of 16) rows, so the policy's dense layers are
+# GEMMs of another M (TOL_SERVE_ROWS' reason), whose ulps then pass through
+# one RL interval (65 RHS calls for HIT, 130 for the channel) and the
+# reward.  Readings (of max |value|, the same in every run on the H100):
+# observations 0, actions 0 (HIT, Burgers) and 1.47e-7 (channel), rewards
+# 0 (HIT), 1.22e-7 (channel) and 2.60e-6 (Burgers).  The limit sits ~8x
+# above the largest; the control (the rows shifted by one env, what a
+# wrong shard layout gives) reads O(1).
+TOL_FLEET_ROWS = 2e-5
+FLEET_NAMES = ("hit_les_24dof", "channel_wm", "burgers_96dof")
 
 
 def ns_rhs_operations(batch: int, kx: int, ky: int, kz: int, n: int) -> int:
@@ -610,10 +641,14 @@ def fleet_phase(counters: list, per_rollout: dict, card: str,
     scenario's evaluation episode.  Each call's launches must be
     `per_rollout` times its fleet rollouts and evaluations; each
     sub-fleet's guard reverts are counted (`GuardReverts`) and held.  Then
-    one RL step of each sub-fleet, timed alone, and the channel's and
-    Burgers' profiled.  The runners checkpoint under `ckpt`.  Returns the
-    launches summed over the calls, in the order of `counters`, and the
-    pipelined runner (its checkpoints stay for the serving phase)."""
+    one RL step of each sub-fleet, timed alone, and Burgers' step and one
+    RK substep of the channel profiled.  The runners checkpoint under
+    `ckpt`.  Returns the launches summed over the calls, in the order of
+    `counters`, the
+    pipelined runner (its checkpoints stay for the serving phase), and the
+    synchronous iteration's record, env-steps and first-step rows (obs,
+    actions, rewards of step 0 by scenario, on the host), which the
+    distributed phase compares with."""
     import torch
 
     from repro_torch import envs, fleet
@@ -622,7 +657,7 @@ def fleet_phase(counters: list, per_rollout: dict, card: str,
 
     names = [fn.__name__ for fn in counters]
     dev = torch.device("cuda", 0)
-    fleet_names = ("hit_les_24dof", "channel_wm", "burgers_96dof")
+    fleet_names = FLEET_NAMES
     fleet_launches = [0] * len(counters)
     for label, pipelined, rollouts in (
             ("pipelined, prologue + iteration 0", True, 2),
@@ -680,12 +715,15 @@ def fleet_phase(counters: list, per_rollout: dict, card: str,
             raise AssertionError(f"fleet {label}: timings {rec}")
         check_reverts(label, frunner, rec, reverts, pipelined)
         fleet_launches = [a + c for a, c in zip(fleet_launches, counts)]
+        if not pipelined:
+            one_rank = {"record": rec, "rows": first_rows(frunner),
+                        "env_steps": env_steps(frunner)}
     for runner in (prunner, frunner):
         for orch in runner.forch.orchs.values():
             if isinstance(orch.env, GuardReverts):
                 orch.env = orch.env.env
-    # one RL step of each sub-fleet at its batch, timed alone; the channel
-    # and Burgers steps also profiled for their launches per RHS
+    # one RL step of each sub-fleet at its batch, timed alone; Burgers'
+    # step and one substep of the channel's profiled for launches per RHS
     for name, orch in frunner.forch.orchs.items():
         n_envs = orch.fleet.n_envs
         fstate = envs.init_state(orch.draw_initial_states(
@@ -704,14 +742,394 @@ def fleet_phase(counters: list, per_rollout: dict, card: str,
               f"({n_rhs} RHS calls) {step_ms:.3f} ms wall ({card}), "
               f"{orch.env.n_actions} steps an episode")
         if name != "hit_les_24dof":
+            # the channel profiled over one RK substep (5 RHS calls): a trace
+            # of its whole RL step (~88,000 launches) took tens of seconds
+            # to read
+            penv = envs.make(name, dt_rl=orch.env.cfg.dt) \
+                if name == "channel_wm" else orch.env
+            n_prof = penv.cfg.n_substeps * 5
             got = profile_window(f"one {name} RL step of {n_envs} envs "
-                                 f"(fleet sub-fleet)",
-                                 lambda: orch.env.step(fstate, faction), card)
+                                 f"({n_prof} RHS calls; fleet sub-fleet)",
+                                 lambda: penv.step(fstate, faction), card)
             if got is not None:
-                print(f"  {name}: {got} launches in the trace over {n_rhs} "
-                      f"RHS calls, {got / n_rhs:.1f} per RHS (the profiler "
+                print(f"  {name}: {got} launches in the trace over {n_prof} "
+                      f"RHS calls, {got / n_prof:.1f} per RHS (the profiler "
                       f"may drop a few)")
-    return fleet_launches, prunner
+    return fleet_launches, prunner, one_rank
+
+
+def first_rows(frunner) -> dict:
+    """{scenario: (obs, actions, rewards) of step 0} of the trajectory the
+    runner's broker holds last, on the host."""
+    from repro_torch.fleet import broker as broker_lib
+
+    return {n: tuple(x[0].cpu() for x in (t.obs, t.actions, t.rewards))
+            for n in frunner.forch.names
+            for t in [broker_lib.latest_traj(frunner.broker, n)]}
+
+
+def env_steps(frunner) -> int:
+    """Env-steps of one rollout of the whole fleet (real envs)."""
+    return sum(o.fleet.n_envs * o.env.n_actions
+               for o in frunner.forch.orchs.values())
+
+
+def state_digests(runner) -> dict:
+    """sha256 of the runner's params, optimizer state and (if it has one)
+    broker, each over its leaves' names and bytes in a fixed order."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.core import checkpoints
+
+    out = {}
+    for part, tree in runner._state_tree().items():
+        h = hashlib.sha256()
+        for key, x in checkpoints._flatten(tree):
+            h.update(key.encode())
+            h.update(x.detach().cpu().contiguous().view(-1).view(
+                torch.uint8).numpy().tobytes())
+        out[part] = h.hexdigest()
+    return out
+
+
+def rank_worker(kind: str, out: str, ckpt: str) -> int:
+    """One rank under torchrun (started by `distributed_phase`): `rl_train`
+    (hit_les_24dof, 16 envs, one iteration) or the fleet (`FLEET_NAMES` at
+    32 envs, at least 8 each, one synchronous iteration), each through its
+    entry point over the ranks' mesh, every launch count 0 before it and
+    read after.  The ranks' records, launch counts, launch counts by
+    instance, the batch of every rollout they ran and state digests are
+    gathered; rank 0 writes them as JSON to `out` (and the fleet's
+    first-step rows to `out`.pt)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import fleet
+    from repro_torch.core import collectives
+    from repro_torch.core import rollout as rollout_lib
+    from repro_torch.core import runner as runner_lib
+    from repro_torch.fleet.pipeline import FleetRunnerConfig
+    from repro_torch.kernels import (dg_derivative, flash_attention,
+                                     linear_scan, rhs, smagorinsky,
+                                     wall_model)
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import rl_train
+
+    counters = [rhs.fused_navier_stokes_rhs, dg_derivative.dg_derivative3,
+                smagorinsky.smagorinsky_nut, wall_model.wall_model_tau,
+                flash_attention.flash_attention, linear_scan.linear_scan]
+    result = {"batches": []}
+
+    def batch(rollout):
+        def wrapped(policy, env, u0, **kwargs):
+            result["batches"].append(u0.shape[0])
+            return rollout(policy, env, u0, **kwargs)
+        return wrapped
+
+    if kind == "rl_train":
+        captured = []
+
+        def keep(train):
+            def wrapped(self, *args, **kwargs):
+                captured.append(self)
+                return train(self, *args, **kwargs)
+            return wrapped
+
+        with patched(runner_lib.Runner, "train", keep), \
+                patched(rollout_lib, "rollout", batch):
+            zero_counts(counters)
+            t0 = time.perf_counter()
+            history = rl_train.main([
+                "--env", "hit_les_24dof", "--n-envs", "16", "--iterations",
+                "1", "--eval-every", "2", "--checkpoint-dir", ckpt])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        (runner,) = captured
+        result["b_pad"] = runner.orch.b_pad
+    else:
+        mesh_lib.init_distributed()
+        runner = fleet.make_fleet_runner(
+            FLEET_NAMES, total_envs=32, min_envs=8,
+            mesh=mesh_lib.make_fleet_mesh(),
+            run_cfg=FleetRunnerConfig(pipelined=False, eval_every=10**6,
+                                      checkpoint_every=10**6,
+                                      checkpoint_dir=ckpt))
+        for orch in runner.forch.orchs.values():
+            orch.env = GuardReverts(orch.env)
+        with patched(rollout_lib, "rollout", batch):
+            zero_counts(counters)
+            t0 = time.perf_counter()
+            history = runner.train(1, resume=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        result["b_pad"] = {n: o.b_pad
+                           for n, o in runner.forch.orchs.items()}
+        result["n_envs"] = {n: o.fleet.n_envs
+                            for n, o in runner.forch.orchs.items()}
+        result["env_steps"] = env_steps(runner)
+        result["reverts"] = {n: o.env.read()
+                             for n, o in runner.forch.orchs.items()}
+        if dist.get_rank() == 0:
+            torch.save(first_rows(runner), out + ".pt")
+    result.update(
+        rank=dist.get_rank(), backend=dist.get_backend(), wall_s=wall,
+        records=history, launches=[fn.launches for fn in counters],
+        instances=[dict(rhs.fused_navier_stokes_rhs.instance_launches),
+                   dict(dg_derivative.dg_derivative3.instance_launches)],
+        digests=state_digests(runner),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    total = torch.tensor(result["launches"], dtype=torch.int64)
+    collectives.all_reduce_(total, dist.group.WORLD)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, result)
+    if dist.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump({"ranks": ranks, "launches_sum": total.tolist()}, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def torchrun(nproc: int, args: list, timeout: float) -> float:
+    """`python -m torch.distributed.run --standalone` of this script's
+    `rank_worker` on `nproc` ranks; its output printed indented.  Raises on
+    a failure, and kills the whole process group at the time limit.
+    Returns the wall time."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", os.path.abspath(__file__),
+           "--rank-worker", *args]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            start_new_session=True)
+    try:
+        log = proc.communicate(timeout=timeout)[0]
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    for line in log.splitlines():
+        print(f"  | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {args[0]} on {nproc} ranks exited "
+                             f"{proc.returncode}")
+    return wall
+
+
+def collectives_on_one_rank(card: str) -> dict:
+    """A one-rank NCCL group on the card: `all_gather_cat`, the three codecs
+    of `compressed_psum` (int8 over two rounds of error feedback) and
+    `chunked_psum`, each bit for bit its single-process value (a sum over
+    one rank; the codecs' rounding computed in plain PyTorch)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives, compression
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        times["init_s"] = time.perf_counter() - t0
+        try:
+            group = dist.group.WORLD
+            if dist.get_backend(group) != "nccl":
+                raise AssertionError(f"backend {dist.get_backend(group)}")
+            tree = {"w": torch.randn((257, 33), generator=gen, device=dev),
+                    "b": torch.randn((1000,), generator=gen,
+                                     device=dev) * 1e-3}
+            t0 = time.perf_counter()
+            checks = {"all_gather": (collectives.all_gather_cat(
+                tree["w"], group, dim=1), tree["w"])}
+            red, _ = compression.compressed_psum(tree, group, method="none")
+            checks.update({f"none {k}": (red[k], tree[k]) for k in tree})
+            red, _ = compression.compressed_psum(tree, group, method="bf16")
+            checks.update({f"bf16 {k}": (red[k], tree[k].to(
+                torch.bfloat16).float()) for k in tree})
+            err = None
+            want_err = {k: torch.zeros_like(v) for k, v in tree.items()}
+            for r in range(2):
+                red, err = compression.compressed_psum(
+                    tree, group, method="int8", error_state=err)
+                for k, g in tree.items():
+                    g = g + want_err[k]
+                    scale = g.abs().max() / 127.0 + 1e-30
+                    q = torch.clamp(torch.round(g / scale), -127, 127)
+                    want = q.to(torch.int8).float() * scale
+                    want_err[k] = g - want
+                    checks[f"int8 round {r} {k}"] = (red[k], want)
+                    checks[f"int8 round {r} {k} residual"] = (
+                        err[k], want_err[k])
+            red = compression.chunked_psum(tree, group, n_chunks=4)
+            checks.update({f"chunked {k}": (red[k], tree[k]) for k in tree})
+            torch.cuda.synchronize()
+            times["checks_s"] = time.perf_counter() - t0
+            for label, (got, want) in checks.items():
+                if not (got.is_cuda and got.dtype == want.dtype
+                        and torch.equal(got, want)):
+                    raise AssertionError(f"one-rank NCCL {label}: not its "
+                                         f"single-process value")
+        finally:
+            dist.destroy_process_group()
+    print(f"one-rank NCCL group ({card}): all_gather_cat, compressed_psum "
+          f"none/bf16/int8 (2 rounds of error feedback) and chunked_psum "
+          f"bit for bit their single-process values ({len(checks)} checks); "
+          f"init {times['init_s']:.3f} s, checks {times['checks_s']:.3f} s")
+    return times
+
+
+def read_ranks(path: str, nproc: int, label: str) -> dict:
+    with open(path) as f:
+        got = json.load(f)
+    if len(got["ranks"]) != nproc:
+        raise AssertionError(f"{label}: {len(got['ranks'])} ranks reported")
+    return got
+
+
+def check_ranks(label: str, got: dict, want: list, want_split: tuple,
+                names: list, batches: list) -> None:
+    """Exact launches and launches by instance on every rank, their sum
+    over ranks, every rank's rollouts at its share of the rows (`batches`),
+    every rank's backend gloo, and params, optimizer state and broker
+    bitwise equal on every rank."""
+    for r in got["ranks"]:
+        split = tuple(r["instances"])
+        print(f"  rank {r['rank']} ({r['backend']}): rollouts of "
+              f"{r['batches']} rows, launches "
+              f"{dict(zip(names, r['launches']))}, fused RHS by instance "
+              f"{split[0]}, dg_derivative3 by instance {split[1]}, "
+              f"{r['wall_s']:.3f} s wall, peak {r['peak_gib']:.3f} GiB, "
+              f"state digests {r['digests']}")
+        if r["launches"] != want or split != want_split:
+            raise AssertionError(f"{label} rank {r['rank']}: launches "
+                                 f"{r['launches']} {split}, expected {want} "
+                                 f"{want_split}")
+        if r["batches"] != batches:
+            raise AssertionError(f"{label} rank {r['rank']}: rollouts of "
+                                 f"{r['batches']} rows, expected {batches}")
+        if r["backend"] != "gloo":
+            raise AssertionError(f"{label}: backend {r['backend']}, ranks "
+                                 f"sharing one card need gloo")
+    n = len(got["ranks"])
+    print(f"  launches summed over the {n} ranks (all-reduce): "
+          f"{dict(zip(names, got['launches_sum']))}")
+    if got["launches_sum"] != [n * c for c in want]:
+        raise AssertionError(f"{label}: summed launches "
+                             f"{got['launches_sum']}")
+    digests = [r["digests"] for r in got["ranks"]]
+    if any(d != digests[0] for d in digests):
+        raise AssertionError(f"{label}: params / optimizer state / broker "
+                             f"differ between ranks: {digests}")
+
+
+def distributed_phase(counters: list, per_rollout: dict, card: str,
+                      one_rank: dict) -> dict:
+    """The fleet across ranks on the one card: (a) the collectives on a
+    one-rank NCCL group; (b) `rl_train` on hit_les_24dof, 16 envs split
+    over 2 ranks (8 each), one iteration; (c) the fleet `FLEET_NAMES` at
+    8 / 8 / 16 envs over 3 ranks (each padded: 9 / 9 / 18, 3 / 3 / 6 rows
+    a rank), one synchronous iteration.  Ranks sharing a card use gloo.
+    Gates: the launches of every rank exact (a rollout's per rank), all on
+    the cluster / tiled instances; params, Adam state and broker bitwise
+    equal on every rank; update_ok 1 and every return_norm in [-1, 1];
+    the fleet's first-step rows within TOL_FLEET_ROWS of the one-process
+    synchronous iteration (`one_rank`, from `fleet_phase`); the channel
+    and Burgers sub-fleets revert nothing.  Prints env-steps/s beside the
+    one-process iteration's.  Returns the readings."""
+    import torch
+
+    names = [fn.__name__ for fn in counters]
+    readings = {"collectives": collectives_on_one_rank(card)}
+    hit, chan = per_rollout["hit"], per_rollout["chan"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) rl_train over 2 ranks
+        out = os.path.join(tmp, "rl_train.json")
+        wall = torchrun(2, ["rl_train", out, os.path.join(tmp, "rl")], 400)
+        got = read_ranks(out, 2, "rl_train")
+        print(f"rl_train hit_les_24dof over 2 ranks ({card}): "
+              f"{wall:.3f} s wall, torchrun included")
+        check_ranks("rl_train", got, [hit, 0, 0, 0, 0, 0],
+                    ({"cluster": hit, "two_pass": 0},
+                     {"tiled": 0, "generic": 0}), names, [8])
+        for r in got["ranks"]:
+            (rec,) = r["records"]
+            print(f"  rank {r['rank']}: b_pad {r['b_pad']}, t_sample_s="
+                  f"{rec['t_sample_s']:.3f} t_update_s="
+                  f"{rec['t_update_s']:.3f} return_norm="
+                  f"{rec['return_norm']:.6f}")
+            if not -1.0 <= rec["return_norm"] <= 1.0:
+                raise AssertionError(f"rl_train: return_norm {rec}")
+        readings["rl_train"] = {"wall_s": wall, "ranks": got["ranks"]}
+
+        # (c) the fleet over 3 ranks
+        out = os.path.join(tmp, "fleet.json")
+        wall = torchrun(3, ["fleet", out, os.path.join(tmp, "fleet")], 600)
+        got = read_ranks(out, 3, "fleet")
+        print(f"fleet {'/'.join(FLEET_NAMES)} over 3 ranks ({card}): "
+              f"{wall:.3f} s wall, torchrun included")
+        check_ranks("fleet", got, [hit, chan, chan, chan, 0, 0],
+                    ({"cluster": hit, "two_pass": 0},
+                     {"tiled": chan, "generic": 0}), names, [3, 3, 6])
+        rank0 = got["ranks"][0]
+        if rank0["n_envs"] != dict(zip(FLEET_NAMES, (8, 8, 16))) or \
+                rank0["b_pad"] != dict(zip(FLEET_NAMES, (9, 9, 18))):
+            raise AssertionError(f"fleet over 3 ranks: {rank0['n_envs']} "
+                                 f"padded to {rank0['b_pad']}")
+        for r in got["ranks"]:
+            (rec,) = r["records"]
+            print(f"  rank {r['rank']}: t_sample_s={rec['t_sample_s']:.3f} "
+                  f"t_update_s={rec['t_update_s']:.3f} t_gather_s="
+                  f"{rec['t_gather_s']:.3f} gather_bytes="
+                  f"{int(rec['gather_bytes'])} update_ok={rec['update_ok']} "
+                  + ", ".join(f"{n}: return_norm="
+                              f"{rec[f'{n}/return_norm']:.6f}"
+                              for n in FLEET_NAMES)
+                  + f"; guard reverts {r['reverts']}")
+            if rec["update_ok"] != 1.0 or not all(
+                    -1.0 <= rec[f"{n}/return_norm"] <= 1.0
+                    for n in FLEET_NAMES):
+                raise AssertionError(f"fleet over 3 ranks: {rec}")
+            for n in FLEET_NAMES[1:]:
+                if any(v[0] for v in r["reverts"][n].values()):
+                    raise AssertionError(f"fleet over 3 ranks: {n} "
+                                         f"reverted {r['reverts'][n]}")
+        rows = torch.load(out + ".pt")
+        for n in FLEET_NAMES:
+            for field, g, w in zip(("obs", "actions", "rewards"), rows[n],
+                                   one_rank["rows"][n]):
+                parity(f"fleet over 3 ranks vs one process, {n} step-0 "
+                       f"{field}", g, w, TOL_FLEET_ROWS)
+                print(f"    bitwise: {torch.equal(g, w)}")
+            # control: the rows one env off, as a wrong shard layout gives
+            g, w = rows[n][0].float(), one_rank["rows"][n][0].float()
+            rel = ((g.roll(1, dims=0) - w).abs().max()
+                   / w.abs().max()).item()
+            print(f"    control, {n} step-0 obs one env off: rel={rel:.3e}")
+            if not rel > TOL_FLEET_ROWS:
+                raise AssertionError(f"fleet over 3 ranks: the gate cannot "
+                                     f"tell {n}'s rows one env off")
+        steps = one_rank["env_steps"]
+        one_rate = steps / one_rank["record"]["t_sample_s"]
+        t_sample = max(r["records"][0]["t_sample_s"] for r in got["ranks"])
+        rate = rank0["env_steps"] / t_sample
+        print(f"fleet env-steps/s ({card}): one process {one_rate:.3f} "
+              f"({steps} env-steps in t_sample_s="
+              f"{one_rank['record']['t_sample_s']:.3f}), 3 ranks on the "
+              f"card {rate:.3f} ({rank0['env_steps']} in the slowest "
+              f"rank's t_sample_s={t_sample:.3f}): {rate / one_rate:.3f}x")
+        readings["fleet"] = {"wall_s": wall, "ranks": got["ranks"],
+                             "env_steps_per_s": rate,
+                             "one_rank_env_steps_per_s": one_rate}
+    return readings
 
 
 def lm_grad_parity(lm_cfg, gen, dev, errs: dict) -> None:
@@ -2159,8 +2577,8 @@ def main() -> int:
         raise AssertionError(f"fleet episode arithmetic gives {per_rollout}")
     fleet_ckpt = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
     try:
-        fleet_launches, prunner = fleet_phase(counters, per_rollout, card,
-                                              fleet_ckpt)
+        fleet_launches, prunner, one_rank = fleet_phase(
+            counters, per_rollout, card, fleet_ckpt)
         for name, n_ in zip(names[:4], fleet_launches[:4]):
             by_path[name]["fleet"] = n_
         elapsed("phase 5: serving the fleet's controllers")
@@ -2168,6 +2586,16 @@ def main() -> int:
         del prunner
     finally:
         shutil.rmtree(fleet_ckpt, ignore_errors=True)
+
+    elapsed("phase 5: the fleet across ranks")
+    ranked = distributed_phase(counters, per_rollout, card, one_rank)
+    for label, key in (("rl_train over 2 ranks", "rl_train"),
+                       ("fleet over 3 ranks", "fleet")):
+        summed = [sum(r["launches"][i] for r in ranked[key]["ranks"])
+                  for i in range(4)]
+        for name, n_ in zip(names[:4], summed):
+            if n_:
+                by_path[name][label] = n_
 
     elapsed("phase 5: hymba-1.5b serving")
     # hymba-1.5b serving: bf16 weights from a seed (cast once, as served),
@@ -2299,8 +2727,9 @@ def main() -> int:
                    lambda: ppo.update_epoch(runner.policy, runner.opt,
                                             runner.ppo_cfg, traj, adv, ret),
                    card)
-    # the channel's RL step is timed and profiled in the fleet phase (its
-    # 8-env sub-fleet): a trace of ~88,000 launches takes tens of seconds
+    # the channel's RL step is timed in the fleet phase (its 8-env
+    # sub-fleet) and one of its RK substeps profiled there: a trace of a
+    # whole step's ~88,000 launches takes tens of seconds
     prompt = lm_batch(3, 4, 2048, lm_cfg.vocab)["tokens"].to(dev)
     params = api.init(serve_cfg, seed=0)
     profile_window("one hymba-1.5b prefill of 4 x 2048 tokens (api.prefill)",
@@ -2385,4 +2814,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(*sys.argv[2:]))
     sys.exit(main())

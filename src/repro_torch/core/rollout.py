@@ -11,7 +11,7 @@ import torch
 
 from .. import conv_precision
 from ..envs.base import Env, EnvState
-from . import policy as policy_lib
+from . import collectives, policy as policy_lib
 from .ppo import Trajectory
 
 
@@ -67,3 +67,21 @@ def episode_return(traj: Trajectory) -> torch.Tensor:
 def normalized_return(traj: Trajectory) -> torch.Tensor:
     """Return normalized by the maximum achievable (+1 per step), as Fig. 5."""
     return episode_return(traj) / traj.rewards.shape[0]
+
+
+def slice_traj(traj: Trajectory, n_envs: int) -> Trajectory:
+    """Drop the padding rows: (T, B_pad, ...) -> (T, n_envs, ...)."""
+    return Trajectory(
+        obs=traj.obs[:, :n_envs], actions=traj.actions[:, :n_envs],
+        log_probs=traj.log_probs[:, :n_envs],
+        rewards=traj.rewards[:, :n_envs], dones=traj.dones[:, :n_envs],
+        values=traj.values[:, :n_envs], last_value=traj.last_value[:n_envs])
+
+
+def gather_traj(traj: Trajectory, group) -> Trajectory:
+    """Every rank's rows of a trajectory, concatenated along the batch axis
+    in the group's rank order (equal row counts on every rank)."""
+    return Trajectory(**{
+        field: collectives.all_gather_cat(x, group,
+                                       dim=0 if field == "last_value" else 1)
+        for field, x in traj._asdict().items()})

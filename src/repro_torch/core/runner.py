@@ -7,6 +7,13 @@ seeded from (seed, k), so a run resumed from a checkpoint re-executes the
 same iterations.  Checkpoints are written by a background thread from host
 copies; a `failure_injector` hook (tests) raises mid-iteration to exercise
 the recovery path.
+
+Over a `mesh` (`launch/mesh.py`) the fleet's env batch splits over the
+ranks (`core/orchestrator.py`) and every rank runs the same update on the
+gathered trajectories.  Global rank 0 alone writes checkpoints and the
+metrics log; every rank restores the step rank 0 finds, so a run
+checkpointed at one world size resumes at another (the state tree does
+not depend on it).
 """
 from __future__ import annotations
 
@@ -19,9 +26,11 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..envs.base import Env
-from . import checkpoints, policy as policy_lib, ppo as ppo_lib
+from . import checkpoints, collectives, elastic
+from . import policy as policy_lib, ppo as ppo_lib
 from .orchestrator import FleetConfig, Orchestrator
 
 
@@ -47,12 +56,15 @@ class RunnerBase:
     """Checkpoint + metrics plumbing shared by training loops: atomic
     versioned checkpoints written off the critical path by a background
     thread, template-based restore, and a jsonl metrics stream.  Subclasses
-    define `_state_tree` / `_load_state` / `_checkpoint_meta`."""
+    define `_state_tree` / `_load_state` / `_checkpoint_meta`.  Over a
+    `mesh` only global rank 0 writes."""
 
     run_cfg: RunnerConfig
 
-    def __init__(self, run_cfg: RunnerConfig | None):
+    def __init__(self, run_cfg: RunnerConfig | None, *, mesh=None):
         self.run_cfg = run_cfg or RunnerConfig()
+        self.mesh = mesh
+        self.writer = mesh is None or dist.get_rank() == 0
         self.iteration = 0
         self._ckpt_thread: threading.Thread | None = None
         self.metrics_path = self.run_cfg.metrics_path or os.path.join(
@@ -70,6 +82,8 @@ class RunnerBase:
         return {"iteration": self.iteration, "seed": self.run_cfg.seed}
 
     def save_checkpoint(self, block: bool = False) -> None:
+        if not self.writer:
+            return
         tree = _host_copy(self._state_tree())  # host copy off critical path
         meta = self._checkpoint_meta()
         step = self.iteration
@@ -91,8 +105,14 @@ class RunnerBase:
             self._ckpt_thread = None
 
     def restore(self) -> bool:
-        """Resume from the newest complete checkpoint; returns True if found."""
+        """Resume from the newest complete checkpoint; returns True if found.
+        Over a mesh every rank restores the step its first rank finds."""
         step = checkpoints.latest_step(self.run_cfg.checkpoint_dir)
+        if self.mesh is not None:
+            box, group = [step], collectives.mesh_group(self.mesh)
+            dist.broadcast_object_list(
+                box, src=dist.get_global_rank(group, 0), group=group)
+            step = box[0]
         if step is None:
             return False
         tree, manifest = checkpoints.restore(
@@ -101,6 +121,8 @@ class RunnerBase:
         return True
 
     def _log(self, record: dict) -> None:
+        if not self.writer:
+            return
         os.makedirs(os.path.dirname(self.metrics_path) or ".", exist_ok=True)
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
@@ -123,18 +145,19 @@ def _copy_into(dst: dict, src: dict) -> None:
 class Runner(RunnerBase):
     def __init__(self, env: Env, fleet: FleetConfig,
                  ppo_cfg: ppo_lib.PPOConfig | None = None,
-                 run_cfg: RunnerConfig | None = None, *,
+                 run_cfg: RunnerConfig | None = None, *, mesh=None,
                  device: str | torch.device | None = None,
                  failure_injector: Callable[[int], None] | None = None):
-        super().__init__(run_cfg)
+        super().__init__(run_cfg, mesh=mesh)
         self.ppo_cfg = ppo_cfg or ppo_lib.PPOConfig()
-        self.orch = Orchestrator(env, fleet, seed=self.run_cfg.seed,
-                                 device=device)
+        self.orch = Orchestrator(env, fleet, mesh=mesh,
+                                 seed=self.run_cfg.seed, device=device)
         self.device = self.orch.device
         self.failure_injector = failure_injector
         # weights drawn on the CPU, so a seed gives the same policy anywhere
         init_gen = torch.Generator().manual_seed(self.run_cfg.seed)
         self.policy = policy_lib.Policy(self.orch.pcfg, init_gen).to(self.device)
+        elastic.reshard(self.policy, mesh)
         self.opt = ppo_lib.make_optimizer(self.policy, self.ppo_cfg)
 
     # --- checkpoint hooks -----------------------------------------------------

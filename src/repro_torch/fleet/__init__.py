@@ -15,12 +15,19 @@ shared multitask policy (PyTorch port of `repro.fleet`).
               built from each env's declared ObsSpec/ActionSpec, and the
               joint update with its non-finite guard
   pipeline    double-buffered rollout/update pipeline (FleetRunner), with
-              the core Runner's checkpoint/restore contract
+              the core Runner's checkpoint/restore contract; over a mesh
+              every rank advances its rows of every scenario's padded
+              batch (the reference's super-batch layout), the rows are
+              gathered, the update runs on every rank
 
-The reference's `superbatch` (the iteration as one program, its rollout
-sharded over a device mesh) has no counterpart yet: on one GPU each
-sub-fleet is one batch dispatched in turn, and the mesh comes with the
-port of distribution.
+The reference's `superbatch` compiles that iteration into one XLA
+program; the port runs eagerly, so the layout has no module of its own.
+Over ranks (under torchrun):
+
+    from repro_torch.launch import mesh
+    mesh.init_distributed()
+    runner = fleet.make_fleet_runner(names, total_envs=32, min_envs=8,
+                                     mesh=mesh.make_fleet_mesh())
 """
 from . import broker, multitask, pipeline, scheduler
 from .multitask import MultiTaskConfig, fleet_update

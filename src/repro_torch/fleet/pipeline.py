@@ -5,8 +5,12 @@
 sub-fleets (one core `Orchestrator` each, with the scenario's head of the
 shared multitask policy plugged in), and `FleetRunner` drives them through
 a double-buffered rollout/update pipeline brokered by `fleet/broker.py`.
-Each sub-fleet is one env batch, rolled out by `Orchestrator.sample_fleet`
-in scenario order:
+Each sub-fleet is one env batch, rolled out by its
+`Orchestrator.sample_fleet` in scenario order.  Over a `mesh` this is the
+reference's super-batch layout: every rank advances its rows of every
+scenario's padded batch, each scenario's rows are gathered over "data"
+and sliced back to the real count, and every rank runs the same update,
+so params and Adam state stay bitwise equal across ranks:
 
     iteration k (pipelined):
         traj_k        <- broker slot k % 2        (rolled last iteration)
@@ -26,6 +30,9 @@ params): rollout generators are seeded with `scheduler.rollout_seed(seed,
 i, k)`, banks with `scheduler.scenario_seed(seed, i)`, and the checkpoint
 state tree carries params + optimizer + THE BROKER (the in-flight
 trajectory included), so a restored pipelined run replays bit for bit.
+The tree does not depend on the world size: a run checkpointed over one
+mesh resumes over another.  Global rank 0 alone writes checkpoints and the
+metrics log.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import torch
 
 from .. import resolve_device
 from ..core import ppo as ppo_lib
+from ..core import elastic
 from ..core.orchestrator import FleetConfig, Orchestrator
 from ..core.runner import RunnerBase, RunnerConfig, _copy_into
 from . import broker as broker_lib
@@ -91,9 +99,11 @@ def stats_template(names) -> dict[str, torch.Tensor]:
 class FleetOrchestrator:
     """Per-scenario sub-fleet orchestrators + the shared multitask policy
     (its weights drawn on the CPU from `seed`, then moved to the device);
-    each orchestrator is driven by its scenario's head."""
+    each orchestrator is driven by its scenario's head.  With a `mesh`,
+    each sub-fleet splits over its "data" axis and rank 0's weights are
+    broadcast to every rank."""
 
-    def __init__(self, schedule: FleetSchedule, *, seed: int = 0,
+    def __init__(self, schedule: FleetSchedule, *, mesh=None, seed: int = 0,
                  bank_size: int = 17, d_embed: int = 32,
                  n_shared_layers: int = 2,
                  device: str | torch.device | None = None):
@@ -104,10 +114,12 @@ class FleetOrchestrator:
             d_embed=d_embed, n_shared_layers=n_shared_layers)
         self.policy = multitask.MultiTaskPolicy(
             self.mcfg, torch.Generator().manual_seed(seed)).to(self.device)
+        elastic.reshard(self.policy, mesh)
         self.orchs = {
             m.name: Orchestrator(
                 m.env, FleetConfig(n_envs=m.n_envs, bank_size=bank_size),
-                seed=sched_lib.scenario_seed(seed, i), device=self.device)
+                mesh=mesh, seed=sched_lib.scenario_seed(seed, i),
+                device=self.device)
             for i, m in enumerate(schedule.members)
         }
 
@@ -132,18 +144,19 @@ class FleetOrchestrator:
 
 
 class FleetRunner(RunnerBase):
-    """Heterogeneous-fleet training with the Runner durability contract."""
+    """Heterogeneous-fleet training with the Runner durability contract,
+    on one device or over a `mesh` (`launch.mesh.make_fleet_mesh`)."""
 
     def __init__(self, schedule: FleetSchedule,
                  ppo_cfg: ppo_lib.PPOConfig | None = None,
-                 run_cfg: FleetRunnerConfig | None = None, *,
+                 run_cfg: FleetRunnerConfig | None = None, *, mesh=None,
                  device: str | torch.device | None = None):
-        super().__init__(run_cfg or FleetRunnerConfig())
+        super().__init__(run_cfg or FleetRunnerConfig(), mesh=mesh)
         cfg = self.run_cfg
         self.ppo_cfg = ppo_cfg or ppo_lib.PPOConfig()
         self.schedule = schedule
         self.forch = FleetOrchestrator(
-            schedule, seed=cfg.seed, bank_size=cfg.bank_size,
+            schedule, mesh=mesh, seed=cfg.seed, bank_size=cfg.bank_size,
             d_embed=cfg.d_embed, n_shared_layers=cfg.n_shared_layers,
             device=device)
         self.device = self.forch.device
@@ -192,6 +205,13 @@ class FleetRunner(RunnerBase):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _gathered(self) -> tuple[float, int]:
+        """(host seconds, bytes received) of every sub-fleet's gathers so
+        far."""
+        orchs = self.forch.orchs.values()
+        return (sum(o.gather_s for o in orchs),
+                sum(o.gather_bytes for o in orchs))
+
     # --- iteration bodies ----------------------------------------------------
     def _push_all(self, trajs: dict, stats: dict | None) -> None:
         for name, traj in trajs.items():
@@ -212,6 +232,7 @@ class FleetRunner(RunnerBase):
         """Paper-synchronous iteration: sample -> sync -> update -> read the
         stats, with the per-iteration host timings."""
         t0 = time.perf_counter()
+        gather = self._gathered()
         trajs = self.forch.sample_all(self._seeds(k))
         self._sync()
         t_sample = time.perf_counter() - t0
@@ -220,8 +241,12 @@ class FleetRunner(RunnerBase):
         host_stats = {name: float(v) for name, v in stats.items()}  # syncs
         t_update = time.perf_counter() - t0
         self._push_all(trajs, stats)
-        return {"iteration": k, "t_sample_s": t_sample,
-                "t_update_s": t_update, **host_stats}
+        timings = {"t_sample_s": t_sample, "t_update_s": t_update}
+        if self.mesh is not None:
+            after = self._gathered()
+            timings["t_gather_s"] = after[0] - gather[0]
+            timings["gather_bytes"] = after[1] - gather[1]
+        return {"iteration": k, **timings, **host_stats}
 
     # --- training ------------------------------------------------------------
     def train(self, n_iterations: int | None = None, *,
@@ -284,16 +309,17 @@ class FleetRunner(RunnerBase):
 def make_fleet_runner(names, total_envs: int = 6, *,
                       ppo_cfg: ppo_lib.PPOConfig | None = None,
                       run_cfg: FleetRunnerConfig | None = None,
-                      costs: dict[str, float] | None = None,
+                      costs: dict[str, float] | None = None, mesh=None,
                       device: str | torch.device | None = None,
                       **schedule_kwargs) -> FleetRunner:
     """Registry names -> schedule -> FleetRunner on `device` (None: the
-    GPU; without one this raises unless device="cpu" is asked for)."""
+    GPU; without one this raises unless device="cpu" is asked for), over
+    `mesh` if one is given."""
     from .. import envs
 
     device = resolve_device(device)
     schedule = sched_lib.build_schedule(
         [(n, envs.make(n)) for n in names], total_envs, costs=costs,
         **schedule_kwargs)
-    return FleetRunner(schedule, ppo_cfg=ppo_cfg, run_cfg=run_cfg,
+    return FleetRunner(schedule, ppo_cfg=ppo_cfg, run_cfg=run_cfg, mesh=mesh,
                        device=device)

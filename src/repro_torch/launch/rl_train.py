@@ -7,15 +7,26 @@
     # CPU-scale smoke on the plain PyTorch path:
     PYTHONPATH=src python -m repro_torch.launch.rl_train --reduced \
         --n-envs 2 --iterations 3 --device cpu
+    # the env fleet split over 2 ranks (on one card they share it by gloo):
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.rl_train --env hit_les_24dof --n-envs 16
+
+Under torchrun the ranks form a (data, model) mesh over every rank
+(`launch.mesh.make_fleet_mesh`): each rank rolls out its rows of the env
+batch, the rows are gathered, and every rank runs the same update; rank 0
+writes the checkpoints and the log.  One process runs without a mesh.
 """
 from __future__ import annotations
 
 import argparse
 
-from .. import envs
+import torch.distributed as dist
+
+from .. import envs, resolve_device
 from ..core.orchestrator import FleetConfig
 from ..core.ppo import PPOConfig
 from ..core.runner import Runner, RunnerConfig
+from . import mesh as mesh_lib
 
 
 def main(argv: list[str] | None = None) -> list[dict]:
@@ -45,6 +56,10 @@ def main(argv: list[str] | None = None) -> list[dict]:
     else:
         name = f"hit_les_{args.dof}dof"
     env = envs.make(name)
+    device = resolve_device(args.device)
+    mesh = None
+    if mesh_lib.init_distributed(device=device):
+        mesh = mesh_lib.make_fleet_mesh(device=device)
     fleet = FleetConfig(n_envs=args.n_envs, bank_size=max(args.n_envs + 1, 9))
     runner = Runner(
         env, fleet,
@@ -56,10 +71,13 @@ def main(argv: list[str] | None = None) -> list[dict]:
             checkpoint_dir=args.checkpoint_dir,
             seed=args.seed,
         ),
-        device=args.device,
+        mesh=mesh,
+        device=device,
     )
+    where = "" if mesh is None else \
+        f", rank {dist.get_rank()} of {dist.get_world_size()}"
     print(f"training {name}: {args.iterations} iterations x {args.n_envs} "
-          f"envs on {runner.device}")
+          f"envs on {runner.device}{where}")
     history = runner.train()
     last = history[-1] if history else {}
     print(f"finished {len(history)} iterations; "
@@ -69,3 +87,5 @@ def main(argv: list[str] | None = None) -> list[dict]:
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

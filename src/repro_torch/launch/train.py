@@ -11,8 +11,9 @@ port's registered architecture on one device.
 Float32 master parameters, compute in `cfg.dtype`, Adam with a global-norm
 clip of 1.0.  Checkpoints (atomic, integrity-checked) carry the params, the
 optimizer state and the token stream's cursor; `--resume` restarts from
-the newest complete one and replays the same batches.  There is no device
-mesh and no sharding until the port of distribution.
+the newest complete one and replays the same batches.  It trains on one
+device: the LM's mesh (tensor and data parallelism, sharded optimizer
+state) is not ported yet.
 """
 from __future__ import annotations
 

@@ -23,9 +23,10 @@ checkpoint's own metadata:
 
 The port's checkpoint keys are `named_parameters()` names
 (`['params']['params.shared.actor.0.w']`), where the reference nests
-(`['params']['shared']['actor'][0]['w']`).  The reference's `mesh=`
-(re-placing the tree on another device mesh) waits for the port of
-distribution.
+(`['params']['shared']['actor'][0]['w']`).  The training mesh does not
+constrain the serving one: `mesh=` places the restored tree replicated on
+any mesh (`core/elastic.reshard`, rank 0's copy broadcast), so a policy
+trained over two ranks serves from one and vice versa.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ import re
 import torch
 
 from .. import resolve_device
-from ..core import checkpoints
+from ..core import checkpoints, elastic
 from ..fleet import multitask
 
 _PARAMS_PREFIX = "['params']['params."
@@ -98,14 +99,16 @@ def _mcfg_from_manifest(manifest: dict, env_overrides: dict | None
 
 
 def load_policy(checkpoint_dir: str, step: int | None = None, *,
-                device: str | torch.device | None = None, verify: bool = True,
+                device: str | torch.device | None = None, mesh=None,
+                verify: bool = True,
                 env_overrides: dict[str, dict] | None = None
                 ) -> LoadedPolicy:
     """Restore the newest (or a specific) fleet checkpoint for serving, on
     `device` (None: the GPU; without one this raises unless device="cpu"
-    is asked for).  `env_overrides` maps scenario name -> registry keyword
-    overrides, for serving a head against a re-parameterized env (the
-    specs must stay identical)."""
+    is asked for), replicated on `mesh` when one is given.
+    `env_overrides` maps scenario name -> registry keyword overrides, for
+    serving a head against a re-parameterized env (the specs must stay
+    identical)."""
     device = resolve_device(device)
     if step is None:
         step = checkpoints.latest_step(checkpoint_dir)
@@ -136,5 +139,6 @@ def load_policy(checkpoint_dir: str, step: int | None = None, *,
                     f"{got.dtype} != template {tuple(want.shape)}/"
                     f"{want.dtype}")
             want.copy_(got)
-    return LoadedPolicy(params=params.to(device), mcfg=mcfg, step=int(step),
+    params = elastic.reshard(params.to(device), mesh)
+    return LoadedPolicy(params=params, mcfg=mcfg, step=int(step),
                         meta=dict(manifest.get("meta", {})))

@@ -75,6 +75,11 @@ In order, and any failure exits non-zero:
      `hit_les_24dof` through `repro_torch.launch.rl_train` (2 PPO iterations
      + 1 evaluation, 16 envs) must launch the fused RHS exactly 3 episodes x
      50 steps x 13 substeps x 5 stages times, all on its cluster instance;
+     the paper's static baselines (`rollout.constant_action_return`,
+     Smagorinsky C_s = 0.17 and implicit LES C_s = 0) on its held-out
+     test state, printed beside the evaluation return, each finite in
+     [-1, 1] and launching the fused RHS 3,250 times on its cluster
+     instance;
      `channel_wm` (1 iteration, no
      evaluation, 16 envs) must launch dg_derivative3, smagorinsky_nut and
      wall_model_tau exactly 20 x 26 x 5 times each (the wall model once
@@ -122,7 +127,18 @@ In order, and any failure exits non-zero:
      fleet's gathered step-0 observations, actions and rewards within
      TOL_FLEET_ROWS of the one-process synchronous iteration above (and
      the rows one env off outside it), and env-steps/s beside that
-     iteration's;
+     iteration's; then hit_les_24dof with its 16 envs each split over 2
+     ranks by its x-slabs (`FleetConfig(elem_axis="model")` on a (data 1,
+     model 2) mesh, `split_rank`): one RL interval of 16 bank rows under a
+     fixed C_s field within TOL_SPLIT of the same staged assembly in one
+     process and within TOL of the fused kernel path (the state one env
+     off outside TOL_SPLIT), then one PPO iteration (no evaluation) that
+     launches dg_derivative3 (tiled) and smagorinsky_nut exactly 3,250
+     times a rank and the fused RHS never, params and Adam state bitwise
+     on both ranks, return_norm in [-1, 1], the step-0 rows within
+     TOL_FLEET_ROWS of one process's first RL step of the same assembly;
+     the ranks' times, the halo exchanges' and the gathers' seconds and
+     bytes, and env-steps/s beside the HIT path's;
      hymba-1.5b serving (bf16 weights from a seed,
      `lm.greedy_generate` of 32 new tokens for 4 prompts of 2,048 Zipf
      tokens, then for 4 of 700) must launch flash_attention 32 times, all on
@@ -228,6 +244,15 @@ TOL_TRAIN_GRAD_NORM = 5e-3
 # above the largest; the control (the rows shifted by one env, what a
 # wrong shard layout gives) reads O(1).
 TOL_FLEET_ROWS = 2e-5
+# One hit_les_24dof env split over 2 ranks by its x-slabs against the same
+# staged assembly in one process (a group of one rank): only the order of
+# the forcing's box sums differs (the slabs' sums are added over the
+# ranks), and a slab's element-batched kernels and matmuls see half the
+# elements.  The CPU test pins 2e-6 (readings <= 2.4e-7,
+# tests/test_torch_elem_split.py); against the fused kernel path the
+# float32 TOL holds.  The control (the state one env off) reads O(1).
+TOL_SPLIT = 2e-6
+SPLIT_ROWS = 16  # envs of the split run, the HIT path's
 FLEET_NAMES = ("hit_les_24dof", "channel_wm", "burgers_96dof")
 
 
@@ -796,10 +821,11 @@ def state_digests(runner) -> dict:
 
 def rank_worker(kind: str, out: str, ckpt: str) -> int:
     """One rank under torchrun (started by `distributed_phase`): `rl_train`
-    (hit_les_24dof, 16 envs, one iteration) or the fleet (`FLEET_NAMES` at
-    32 envs, at least 8 each, one synchronous iteration), each through its
-    entry point over the ranks' mesh, every launch count 0 before it and
-    read after.  The ranks' records, launch counts, launch counts by
+    (hit_les_24dof, 16 envs, one iteration), the fleet (`FLEET_NAMES` at
+    32 envs, at least 8 each, one synchronous iteration) or one
+    hit_les_24dof env split over the ranks by its x-slabs (`split_rank`),
+    each through its entry point over the ranks' mesh, every launch count 0
+    before it and read after.  The ranks' records, launch counts, launch counts by
     instance, the batch of every rollout they ran and state digests are
     gathered; rank 0 writes them as JSON to `out` (and the fleet's
     first-step rows to `out`.pt)."""
@@ -829,7 +855,11 @@ def rank_worker(kind: str, out: str, ckpt: str) -> int:
             return rollout(policy, env, u0, **kwargs)
         return wrapped
 
-    if kind == "rl_train":
+    if kind == "split":
+        with patched(rollout_lib, "rollout", batch):
+            runner = split_rank(ckpt, out, counters, result)
+        wall, history = result.pop("wall_s"), result.pop("records")
+    elif kind == "rl_train":
         captured = []
 
         def keep(train):
@@ -849,7 +879,7 @@ def rank_worker(kind: str, out: str, ckpt: str) -> int:
             wall = time.perf_counter() - t0
         (runner,) = captured
         result["b_pad"] = runner.orch.b_pad
-    else:
+    elif kind == "fleet":
         mesh_lib.init_distributed()
         runner = fleet.make_fleet_runner(
             FLEET_NAMES, total_envs=32, min_envs=8,
@@ -890,6 +920,232 @@ def rank_worker(kind: str, out: str, ckpt: str) -> int:
             json.dump({"ranks": ranks, "launches_sum": total.tolist()}, f)
     dist.destroy_process_group()
     return 0
+
+
+def split_rank(ckpt: str, out: str, counters: list, result: dict):
+    """One rank of hit_les_24dof split over a (data 1, model 2) mesh by its
+    x-slabs (`FleetConfig(elem_axis="model")`, 16 envs): first one RL
+    interval of the first 16 bank rows under a fixed C_s field (rank 0
+    writes the inputs and the gathered state to `out`.interval.pt), then
+    one PPO iteration through `Runner.train` (no evaluation), every launch
+    count 0 before it; rank 0 writes the gathered trajectory's step-0
+    rows to `out`.pt.  Records into `result` the interval's launches, the
+    exchanges' seconds and bytes of the iteration, and its wall time.
+    Returns the runner."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import envs
+    from repro_torch.cfd import solver
+    from repro_torch.core.orchestrator import FleetConfig
+    from repro_torch.core.runner import Runner, RunnerConfig
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.init_distributed()
+    runner = Runner(envs.make("hit_les_24dof"),
+                    FleetConfig(n_envs=SPLIT_ROWS, elem_axis="model"),
+                    run_cfg=RunnerConfig(eval_every=10**6,
+                                         checkpoint_every=10**6,
+                                         checkpoint_dir=ckpt),
+                    mesh=mesh_lib.make_fleet_mesh(model=2))
+    orch, split = runner.orch, runner.orch.split
+    cfg = orch.env.cfg
+    rows = orch.bank[:SPLIT_ROWS]
+    gen = torch.Generator(device=orch.device).manual_seed(7)
+    cs = 0.12 + 0.1 * torch.rand((SPLIT_ROWS,) + (cfg.n_elem,) * 3,
+                                 generator=gen, device=orch.device)
+    zero_counts(counters)
+    u = split.gather(solver.advance_rl_interval(
+        orch.env.slab(rows), split.slab(cs, 1), cfg, split), 1)
+    torch.cuda.synchronize()
+    result["interval_launches"] = [fn.launches for fn in counters]
+    if dist.get_rank() == 0:
+        torch.save({k: v.cpu() for k, v in
+                    (("rows", rows), ("cs", cs), ("u", u))},
+                   out + ".interval.pt")
+    trajs = []
+    sample = orch.sample_fleet
+
+    def kept(policy, gen):
+        trajs.append(sample(policy, gen))
+        return trajs[-1]
+
+    orch.sample_fleet = kept
+    split.halo_s = split.gather_s = 0.0
+    split.halo_bytes = split.gather_bytes = 0
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    result["records"] = runner.train(1, resume=False)
+    torch.cuda.synchronize()
+    result["wall_s"] = time.perf_counter() - t0
+    result["exchanges"] = {k: getattr(split, k) for k in (
+        "halo_s", "halo_bytes", "gather_s", "gather_bytes")}
+    result["b_pad"] = orch.b_pad
+    if dist.get_rank() == 0:
+        torch.save(tuple(x[0].cpu() for x in (
+            trajs[0].obs, trajs[0].actions, trajs[0].rewards)), out + ".pt")
+    return runner
+
+
+def split_phase(names: list, card: str, tmp: str, hit_one: list) -> dict:
+    """(d) of `distributed_phase`: hit_les_24dof with 16 envs, each split
+    over 2 ranks by its x-slabs (`split_rank`).  Gates: the ranks' PPO
+    iteration launches dg_derivative3 (tiled) and smagorinsky_nut exactly
+    3,250 times each a rank and the fused RHS never; params and Adam state
+    bitwise on both ranks; return_norm in [-1, 1]; the split RL interval
+    within TOL_SPLIT of the same staged assembly in one process and within
+    TOL of the fused kernel path, the state one env off outside TOL_SPLIT;
+    the step-0 observations, actions and rewards within TOL_FLEET_ROWS of
+    one process's rollout of the same assembly (one RL step of the same
+    draws and initial policy), and the rows one env off outside it.  Prints the
+    ranks' times and exchanges and env-steps/s beside one process's
+    (`hit_one`: the records of the HIT path's unsplit iterations)."""
+    import torch
+
+    from repro_torch import envs
+    from repro_torch.cfd import solver
+    from repro_torch.core import collectives, policy as policy_lib
+    from repro_torch.core import rollout as rollout_lib
+    from repro_torch.core.orchestrator import FleetConfig, Orchestrator
+    from repro_torch.core.runner import iteration_seed
+    from repro_torch.envs.hit_les import HITLESEnv
+
+    env = envs.make("hit_les_24dof")
+    cfg = env.cfg
+    per_rollout = cfg.n_actions * cfg.n_substeps * 5
+    out = os.path.join(tmp, "split.json")
+    wall = torchrun(2, ["split", out, os.path.join(tmp, "split")], 400)
+    got = read_ranks(out, 2, "split")
+    print(f"hit_les_24dof, {SPLIT_ROWS} envs each split over 2 ranks by "
+          f"its x-slabs ({card}): {wall:.3f} s wall, torchrun included")
+    check_ranks("hit_les_24dof split", got,
+                [0, per_rollout, per_rollout, 0, 0, 0],
+                ({"cluster": 0, "two_pass": 0},
+                 {"tiled": per_rollout, "generic": 0}), names, [SPLIT_ROWS])
+    interval = cfg.n_substeps * 5
+    for r in got["ranks"]:
+        (rec,) = r["records"]
+        ex = r["exchanges"]
+        print(f"  rank {r['rank']}: t_sample_s={rec['t_sample_s']:.3f} "
+              f"t_update_s={rec['t_update_s']:.3f} return_norm="
+              f"{rec['return_norm']:.6f}; halo exchanges and box sums "
+              f"{ex['halo_s']:.3f} s, {ex['halo_bytes']} B received; the "
+              f"velocity's gathers {ex['gather_s']:.3f} s, "
+              f"{ex['gather_bytes']} B received; the interval's launches "
+              f"{dict(zip(names, r['interval_launches']))}")
+        if not -1.0 <= rec["return_norm"] <= 1.0:
+            raise AssertionError(f"split: return_norm {rec}")
+        if r["interval_launches"] != [0, interval, interval, 0, 0, 0]:
+            raise AssertionError(f"split interval launches "
+                                 f"{r['interval_launches']}")
+
+    dev = torch.device("cuda", 0)
+    data = torch.load(out + ".interval.pt")
+    rows, cs, u_split = (data[k].to(dev) for k in ("rows", "cs", "u"))
+    u_same = solver.advance_rl_interval(rows, cs, cfg,
+                                        collectives.ElemSplit())
+    u_fused = solver.advance_rl_interval(rows, cs, cfg)
+    for label, u in (("split", u_split), ("one process", u_same),
+                     ("fused", u_fused)):
+        if not torch.isfinite(u).all():
+            raise AssertionError(f"split interval: {label} state not "
+                                 f"finite")
+    label = (f"one 24-DOF RL interval of {SPLIT_ROWS} envs ({interval} RHS "
+             f"calls) split over 2 ranks")
+    err = parity(f"{label} vs the same assembly in one process", u_split,
+                 u_same, TOL_SPLIT)
+    parity(f"{label} vs the fused kernel path", u_split, u_fused,
+           TOL["float32"])
+    rel = ((u_split.roll(1, 0) - u_same).abs().max()
+           / u_same.abs().max()).item()
+    print(f"    control, the split state one env off: rel={rel:.3e}")
+    if not rel > TOL_SPLIT:
+        raise AssertionError("split: the gate cannot tell the state one "
+                             "env off")
+
+    # one process, the same assembly: the rollout's first step from the
+    # same draws and initial policy
+    orch = Orchestrator(env, FleetConfig(n_envs=SPLIT_ROWS,
+                                         elem_axis="model"))
+    u0, noise = orch.draw_padded_inputs(torch.Generator(
+        device=dev).manual_seed(iteration_seed(0, 0)))
+    policy = policy_lib.Policy(orch.pcfg, torch.Generator().manual_seed(
+        0)).to(dev)
+    one_step = HITLESEnv(dataclasses.replace(cfg, t_end=cfg.dt_rl)).split_x(
+        collectives.ElemSplit())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = rollout_lib.rollout(policy, one_step, u0, noise=noise[:1])
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    want = tuple(x[0].cpu() for x in (traj.obs, traj.actions, traj.rewards))
+    rows0 = torch.load(out + ".pt")
+    for field, g, w in zip(("obs", "actions", "rewards"), rows0, want):
+        parity(f"hit_les_24dof split over 2 ranks vs one process, step-0 "
+               f"{field}", g, w, TOL_FLEET_ROWS)
+        print(f"    bitwise: {torch.equal(g, w)}")
+    rel = ((rows0[0].roll(1, 0) - want[0]).abs().max()
+           / want[0].abs().max()).item()
+    print(f"    control, step-0 obs one env off: rel={rel:.3e}")
+    if not rel > TOL_FLEET_ROWS:
+        raise AssertionError("split: the gate cannot tell the rows one env "
+                             "off")
+    steps = SPLIT_ROWS * cfg.n_actions
+    t_sample = max(r["records"][0]["t_sample_s"] for r in got["ranks"])
+    rate = steps / t_sample
+    one = [steps / rec["t_sample_s"] for rec in hit_one]
+    print(f"hit_les_24dof env-steps/s ({card}): split over 2 ranks on the "
+          f"card {rate:.3f} ({steps} env-steps in the slowest rank's "
+          f"t_sample_s={t_sample:.3f}); one process, the fused kernel path "
+          f"(phase 5's iterations) "
+          + ", ".join(f"{x:.3f}" for x in one)
+          + f"; one process, the same staged assembly: one RL step of "
+          f"{SPLIT_ROWS} envs in {t_step:.3f} s (the first of its shape)")
+    return {"wall_s": wall, "ranks": got["ranks"], "interval_err": err,
+            "env_steps_per_s": rate, "one_rank_env_steps_per_s": one,
+            "one_step_s": t_step}
+
+
+def baselines(counters: list, eval_return: float, card: str) -> int:
+    """The paper's static baselines (Fig. 5 bottom) on hit_les_24dof's
+    held-out test state (the bank of `rl_train`'s seed 0):
+    `rollout.constant_action_return` at Smagorinsky C_s = 0.17 and
+    implicit LES C_s = 0, printed beside the trained policy's evaluation
+    return.  Each episode must launch the fused RHS 3,250 times, all on
+    the cluster instance, and return a finite value in [-1, 1].  Returns
+    the launches of both."""
+    import torch
+
+    from repro_torch import envs
+    from repro_torch.core.orchestrator import FleetConfig, Orchestrator
+    from repro_torch.core.rollout import constant_action_return
+    from repro_torch.kernels import rhs
+
+    orch = Orchestrator(envs.make("hit_les_24dof"), FleetConfig(n_envs=16))
+    cfg = orch.env.cfg
+    want = [cfg.n_actions * cfg.n_substeps * 5, 0, 0, 0, 0, 0]
+    total = 0
+    for label, value in (("Smagorinsky C_s = 0.17", 0.17),
+                         ("implicit LES C_s = 0", 0.0)):
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        ret = constant_action_return(orch.env, orch.test_state(), value)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = [fn.launches for fn in counters]
+        cluster = rhs.fused_navier_stokes_rhs.instance_launches["cluster"]
+        print(f"baseline {label} on the held-out test state ({card}): "
+              f"return_norm={ret:.6f} beside the trained policy's "
+              f"eval_return_norm={eval_return:.6f}; {wall:.3f} s, launches "
+              f"{launches} ({cluster} on the cluster instance)")
+        if launches != want or cluster != want[0]:
+            raise AssertionError(f"baseline {label}: launches {launches}, "
+                                 f"expected {want} all on the cluster "
+                                 f"instance")
+        if not (math.isfinite(ret) and -1.0 <= ret <= 1.0):
+            raise AssertionError(f"baseline {label}: return {ret}")
+        total += launches[0]
+    return total
 
 
 def torchrun(nproc: int, args: list, timeout: float) -> float:
@@ -1032,7 +1288,7 @@ def check_ranks(label: str, got: dict, want: list, want_split: tuple,
 
 
 def distributed_phase(counters: list, per_rollout: dict, card: str,
-                      one_rank: dict) -> dict:
+                      one_rank: dict, hit_one: list) -> dict:
     """The fleet across ranks on the one card: (a) the collectives on a
     one-rank NCCL group; (b) `rl_train` on hit_les_24dof, 16 envs split
     over 2 ranks (8 each), one iteration; (c) the fleet `FLEET_NAMES` at
@@ -1044,7 +1300,9 @@ def distributed_phase(counters: list, per_rollout: dict, card: str,
     the fleet's first-step rows within TOL_FLEET_ROWS of the one-process
     synchronous iteration (`one_rank`, from `fleet_phase`); the channel
     and Burgers sub-fleets revert nothing.  Prints env-steps/s beside the
-    one-process iteration's.  Returns the readings."""
+    one-process iteration's.  (d) hit_les_24dof with each env split over 2
+    ranks by its x-slabs (`split_phase`, against `hit_one`, the HIT path's
+    records).  Returns the readings."""
     import torch
 
     names = [fn.__name__ for fn in counters]
@@ -1129,6 +1387,9 @@ def distributed_phase(counters: list, per_rollout: dict, card: str,
         readings["fleet"] = {"wall_s": wall, "ranks": got["ranks"],
                              "env_steps_per_s": rate,
                              "one_rank_env_steps_per_s": one_rate}
+
+        # (d) one env split over 2 ranks by its x-slabs
+        readings["split"] = split_phase(names, card, tmp, hit_one)
     return readings
 
 
@@ -2521,7 +2782,8 @@ def main() -> int:
     expected = (n_iter + 1) * cfg.n_actions * cfg.n_substeps * 5
     if expected != 9750:  # 3 episodes x 50 steps x 13 substeps x 5 stages
         raise AssertionError(f"HIT episode arithmetic gives {expected}")
-    _, counts, wall, step = train("hit_les_24dof", n_iter, counters)
+    hit_history, counts, wall, step = train("hit_les_24dof", n_iter,
+                                            counters)
     print(f"main path hit_les_24dof: {wall:.2f} s wall, launches "
           f"{dict(zip(names, counts))} (fused RHS expected {expected}), "
           f"checkpoint step {step}")
@@ -2537,6 +2799,10 @@ def main() -> int:
                              f"kernel")
     # each kernel's launches by path: the record's `launches` is their sum
     by_path = {"fused_navier_stokes_rhs": {"hit_les_24dof": counts[0]}}
+
+    elapsed("phase 5: the paper's constant-C_s baselines")
+    by_path["fused_navier_stokes_rhs"]["baselines"] = baselines(
+        counters, hit_history[-1]["eval_return_norm"], card)
 
     elapsed("phase 5: channel_wm")
     # one iteration, no evaluation episode (the fleet phase below runs the
@@ -2588,9 +2854,11 @@ def main() -> int:
         shutil.rmtree(fleet_ckpt, ignore_errors=True)
 
     elapsed("phase 5: the fleet across ranks")
-    ranked = distributed_phase(counters, per_rollout, card, one_rank)
+    ranked = distributed_phase(counters, per_rollout, card, one_rank,
+                               hit_history)
     for label, key in (("rl_train over 2 ranks", "rl_train"),
-                       ("fleet over 3 ranks", "fleet")):
+                       ("fleet over 3 ranks", "fleet"),
+                       ("hit_les_24dof split over 2 ranks", "split")):
         summed = [sum(r["launches"][i] for r in ranked[key]["ranks"])
                   for i in range(4)]
         for name, n_ in zip(names[:4], summed):

@@ -17,6 +17,11 @@ boundary face slab; `left_faces(f_right, d, lo_value=None)` converts to
 left-face indexing, periodic by default (a roll), non-periodic when
 `lo_value` overrides element 0's left face.  `dg_gradient`/`dg_divergence`
 take an optional per-direction `bc` tuple built on these helpers.
+
+A mesh split over ranks by its x-slabs (`core.collectives.ElemSplit`,
+passed as `split`) takes every periodic roll along x through the split's
+`roll`, which fetches the wrapped face slab from the neighbouring rank;
+with `split=None` the roll is `torch.roll`.
 """
 from __future__ import annotations
 
@@ -88,12 +93,21 @@ def _face_slices(u: torch.Tensor, direction: int):
     return u.select(axis, 0), u.select(axis, u.shape[axis] - 1)
 
 
-def neighbor_traces(u: torch.Tensor, direction: int):
+def _roll(x: torch.Tensor, shifts: int, axis: int, direction: int,
+          split) -> torch.Tensor:
+    """The periodic roll of a face array along `direction`'s element axis:
+    through `split` along a split x, else `torch.roll`."""
+    if split is not None and direction == 0:
+        return split.roll(x, shifts, axis)
+    return torch.roll(x, shifts=shifts, dims=axis)
+
+
+def neighbor_traces(u: torch.Tensor, direction: int, split=None):
     """States meeting at the right face of every element along `direction`:
     (node-N trace of e, node-0 trace of e+1), periodic wrap."""
     lo, hi = _face_slices(u, direction)
     elem_axis = ELEM_AXIS[direction] + lo.ndim + 1  # one axis was dropped
-    return hi, torch.roll(lo, shifts=-1, dims=elem_axis)
+    return hi, _roll(lo, -1, elem_axis, direction, split)
 
 
 def set_face(face_arr: torch.Tensor, direction: int, index: int,
@@ -109,11 +123,12 @@ def set_face(face_arr: torch.Tensor, direction: int, index: int,
 
 
 def left_faces(f_right: torch.Tensor, direction: int,
-               lo_value: torch.Tensor | None = None) -> torch.Tensor:
+               lo_value: torch.Tensor | None = None,
+               split=None) -> torch.Tensor:
     """Right-face-indexed -> left-face-indexed along `direction`; periodic
     unless `lo_value` prescribes the -0 domain face."""
     axis = ELEM_AXIS[direction] + f_right.ndim + 1
-    out = torch.roll(f_right, shifts=1, dims=axis)
+    out = _roll(f_right, 1, axis, direction, split)
     if lo_value is not None:
         out = set_face(out, direction, 0, lo_value)
     return out
@@ -144,22 +159,25 @@ def surface_lift(du: torch.Tensor, flux_jump_right: torch.Tensor,
 
 def dg_gradient(q: torch.Tensor, dg: DGParams | None, d_matrix: torch.Tensor,
                 inv_w_end: tuple[float, float], vol_derivs=None, *,
-                jac=None, bc: tuple | None = None) -> torch.Tensor:
+                jac=None, bc: tuple | None = None,
+                split=None) -> torch.Tensor:
     """BR1-style DG gradient of nodal field q (..., K,K,K, n,n,n, C) with
     central interface values; returns (..., C, 3).  `bc[d]` is None
-    (periodic) or `(q_lo, q_hi)` prescribed boundary face states."""
+    (periodic) or `(q_lo, q_hi)` prescribed boundary face states; `split`
+    the x-slab split of a periodic x."""
     jacs = _per_direction_jac(dg, jac)
     grads = []
     for d in range(3):
         vol = deriv_along(q, d_matrix, d) if vol_derivs is None else vol_derivs[d]
-        q_left, q_right = neighbor_traces(q, d)
+        q_left, q_right = neighbor_traces(q, d, split)
         q_star_right = 0.5 * (q_left + q_right)
         lo, hi = _face_slices(q, d)
         bc_d = bc[d] if bc is not None else None
         if bc_d is not None:
             q_star_right = set_face(q_star_right, d, -1, bc_d[1])
         q_star_left = left_faces(q_star_right, d,
-                                 lo_value=bc_d[0] if bc_d is not None else None)
+                                 lo_value=bc_d[0] if bc_d is not None else None,
+                                 split=split)
         g = surface_lift(vol, q_star_right - hi, q_star_left - lo, d, inv_w_end)
         grads.append(g * jacs[d])
     return torch.stack(grads, dim=-1)

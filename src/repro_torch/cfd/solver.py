@@ -138,19 +138,21 @@ class HITConfig:
 def kernel_grad_nut(q_prim: torch.Tensor, cs_nodes: torch.Tensor,
                     d_matrix: torch.Tensor, inv_w_end: tuple[float, float],
                     delta: float, *, dg: DGParams | None = None, jac=None,
-                    bc: tuple | None = None
+                    bc: tuple | None = None, split=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """BR1 gradient of q_prim (..., 4, 3) and Smagorinsky nu_t through the
     component kernels: `dg_derivative3` gives the volume derivatives that
-    `dgsem.dg_gradient` lifts (with `dg` / `jac` / `bc` as it takes them),
-    then `smagorinsky_nut` the eddy viscosity.  Each kernel's wrapper takes
-    its plain version for CPU tensors."""
+    `dgsem.dg_gradient` lifts (with `dg` / `jac` / `bc` / `split` as it
+    takes them), then `smagorinsky_nut` the eddy viscosity.  Both kernels
+    are element-local, so they run on an x-slab as on a whole mesh.  Each
+    kernel's wrapper takes its plain version for CPU tensors."""
     n, c = q_prim.shape[-2], q_prim.shape[-1]
     vols = dg_derivative.dg_derivative3(
         q_prim.reshape((-1, n, n, n, c)).contiguous(), d_matrix)
     vol_derivs = tuple(v.reshape(q_prim.shape) for v in vols)
     grad_prim = dgsem.dg_gradient(q_prim, dg, d_matrix, inv_w_end,
-                                  vol_derivs=vol_derivs, jac=jac, bc=bc)
+                                  vol_derivs=vol_derivs, jac=jac, bc=bc,
+                                  split=split)
     # the velocity rows, a view of the (..., 4, 3) gradient with a point
     # stride of 12 values, which the kernel reads in place
     nu_t = smagorinsky.smagorinsky_nut(
@@ -166,7 +168,7 @@ def broadcast_cs(cs_elem: torch.Tensor, cfg: HITConfig) -> torch.Tensor:
 
 
 def navier_stokes_rhs(u: torch.Tensor, cs_nodes: torch.Tensor,
-                      cfg: HITConfig, ops: dict) -> torch.Tensor:
+                      cfg: HITConfig, ops: dict, split=None) -> torch.Tensor:
     """-div(F_adv - F_visc) + forcing, the full semi-discrete RHS.
 
     With `cfg.use_kernels` the whole evaluation is one call of the fused
@@ -175,10 +177,23 @@ def navier_stokes_rhs(u: torch.Tensor, cs_nodes: torch.Tensor,
     the reference's `rhs_gradients` / `rhs_divergence` / `rhs_forcing`,
     which are `plain_gradients` / `plain_divergence` / `plain_forcing` of
     kernels/rhs.py.
+
+    On a mesh split over ranks by its x-slabs (`split`, a
+    `core.collectives.ElemSplit`; u is this rank's slabs; float32) the
+    fused kernel cannot run: it wraps whole periodic meshes and takes
+    whole-box means inside.  There `use_kernels` means the channel's
+    staged assembly: `kernel_grad_nut` (the `dg_derivative3` and
+    `smagorinsky_nut` kernels, one launch each), then `plain_divergence`
+    and the forcing, their x-faces and box sums exchanged through `split`.
     """
     kw = dict(inv_w_end=ops["inv_w_end"], jac=cfg.dg.jac,
               delta=cfg.delta_filter, forcing_a0=cfg.forcing_a0,
               k_tke=cfg.k_tke)
+    if split is not None:
+        return rhs_kernel.plain_rhs(
+            u, cs_nodes, ops["D"], ops["w"], gas=cfg.gas, split=split,
+            gradients=(kernel_grad_nut if cfg.use_kernels
+                       else rhs_kernel.plain_gradients), **kw)
     if cfg.use_kernels:
         return rhs_kernel.fused_navier_stokes_rhs(
             u, cs_nodes, ops["D"], ops["w"], mu=cfg.gas.mu,
@@ -188,14 +203,14 @@ def navier_stokes_rhs(u: torch.Tensor, cs_nodes: torch.Tensor,
 
 
 def rk_substep(u: torch.Tensor, cs_nodes: torch.Tensor, cfg: HITConfig,
-               ops: dict) -> torch.Tensor:
+               ops: dict, split=None) -> torch.Tensor:
     """One low-storage RK5(4) step of size cfg.dt."""
     dt = _rounded(cfg.dt, u.dtype)
     du = torch.zeros_like(u)
     for stage in range(5):
         # the cast keeps the carry in the rollout compute dtype (the staged
         # RHS promotes a bf16 state against the float32 operators)
-        rhs = navier_stokes_rhs(u, cs_nodes, cfg, ops).to(u.dtype)
+        rhs = navier_stokes_rhs(u, cs_nodes, cfg, ops, split).to(u.dtype)
         du = _rounded(_RK_A[stage], u.dtype) * du + dt * rhs
         u = u + _rounded(_RK_B[stage], u.dtype) * du
     return u
@@ -211,12 +226,17 @@ def _rounded(x: float, dtype: torch.dtype) -> float:
 
 
 def advance_rl_interval(u: torch.Tensor, cs_elem: torch.Tensor,
-                        cfg: HITConfig) -> torch.Tensor:
+                        cfg: HITConfig, split=None) -> torch.Tensor:
     """Advance the LES by Delta t_RL under fixed per-element C_s (one MDP
     transition).  With `cfg.precision == "bf16"` the state is advanced in
-    bfloat16 and cast back to float32 at the end."""
+    bfloat16 and cast back to float32 at the end.  With `split` u and
+    cs_elem are this rank's x-slabs of a split mesh (float32 only)."""
     ops = cfg.operators(u.device)
     dtype = cfg.compute_dtype
+    if split is not None and dtype != torch.float32:
+        raise NotImplementedError(
+            "a split mesh advances in float32 only; bf16 there is ROADMAP "
+            "A11d")
     # contiguous: the fused kernel reads one C_s per node
     cs_nodes = broadcast_cs(cs_elem, cfg).to(dtype).contiguous()
     u = u.to(dtype)
@@ -224,5 +244,5 @@ def advance_rl_interval(u: torch.Tensor, cs_elem: torch.Tensor,
         # the operator matrices follow the compute dtype, as in the reference
         ops = dict(ops, D=ops["D"].to(dtype), w=ops["w"].to(dtype))
     for _ in range(cfg.n_substeps):
-        u = rk_substep(u, cs_nodes, cfg, ops)
+        u = rk_substep(u, cs_nodes, cfg, ops, split)
     return u.to(torch.float32)

@@ -13,6 +13,14 @@ env count from the iteration's generator, identically on every rank, and
 padded to a multiple of the shard count (pad rows replay bank row 0 with
 zero noise); each rank rolls out its contiguous rows, and the rows are
 gathered and sliced back to the real count before GAE sees them.
+
+With `FleetConfig.elem_axis` (HIT only) each env is also split by its
+x-slabs over that mesh axis (the paper's several ranks per environment):
+the env becomes `env.split_x(ElemSplit)` over the axis's group, each rank
+of a group takes its x-slabs of the rows it draws, and the policy, the
+trajectory and the update stay whole and replicated over the group.
+Without a mesh the axis has one rank: the split assembly with no
+exchange.
 """
 from __future__ import annotations
 
@@ -33,8 +41,8 @@ from . import rollout as rollout_lib
 class FleetConfig:
     n_envs: int = 16          # parallel environments (paper: 16/32/64...1024)
     bank_size: int = 17       # initial states; last one is the held-out test
-    # the mesh axes the env batch splits over; the element axis's sharding
-    # is not ported (ROADMAP A11b)
+    # the mesh axes the env batch splits over, and the one each env's
+    # first element axis splits over (None: not split)
     env_axes: tuple[str, ...] = ("data",)
     elem_axis: str | None = None
 
@@ -50,11 +58,11 @@ class Orchestrator:
 
     def __init__(self, env: Env, fleet: FleetConfig, *, mesh=None,
                  seed: int = 0, device: str | torch.device | None = None):
+        env = as_env(env)  # a bare HITConfig coerces here
+        self.split = None
         if fleet.elem_axis is not None:
-            raise NotImplementedError(
-                "FleetConfig.elem_axis: sharding the element axis needs a "
-                "split solver, not ported (ROADMAP A11b)")
-        self.env = env = as_env(env)  # a bare HITConfig coerces here
+            env = self._split_env(env, fleet, mesh)
+        self.env = env
         self.fleet = fleet
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -76,6 +84,28 @@ class Orchestrator:
         # index -1 is the unseen test state
         self.bank = elastic.replicate(make_bank, mesh, self.device)
 
+    def _split_env(self, env: Env, fleet: FleetConfig, mesh) -> Env:
+        """`env` split by its x-slabs over the ranks of `fleet.elem_axis`
+        (`self.split`)."""
+        split_x = getattr(env, "split_x", None)
+        if split_x is None:
+            raise NotImplementedError(
+                f"FleetConfig.elem_axis: only the HIT envs split by their "
+                f"element axis, not {type(env).__name__}; the channel and "
+                f"Burgers split is ROADMAP A11d")
+        if fleet.elem_axis in fleet.env_axes:
+            raise ValueError(f"elem_axis {fleet.elem_axis!r} is also an env "
+                             f"axis {fleet.env_axes}")
+        size = collectives.axes_size(mesh, (fleet.elem_axis,))
+        group, rank = (None, 0) if size == 1 else \
+            collectives.axes_group(mesh, (fleet.elem_axis,))
+        self.split = collectives.ElemSplit(group, rank, size)
+        return split_x(self.split)
+
+    def local(self, u: torch.Tensor) -> torch.Tensor:
+        """This rank's part of whole states: its x-slabs on a split env."""
+        return u if self.split is None else self.env.slab(u)
+
     def draw_initial_states(self, gen: torch.Generator,
                             n_envs: int | None = None) -> torch.Tensor:
         """Random bank rows (excluding the held-out test state), (B, ...)."""
@@ -94,7 +124,8 @@ class Orchestrator:
         the real env count from `gen` in the order of `draw_initial_states`
         + `rollout`, so the real rows are those of an unsharded rollout
         from the same generator; pad rows replay bank row 0 with zero
-        noise."""
+        noise.  On a split env u0 is this rank's x-slabs of the rows; the
+        noise is the whole env's."""
         n = self.fleet.n_envs
         pad = self.b_pad - n
         idx = torch.randint(0, self.fleet.bank_size - 1, (n,), generator=gen,
@@ -106,7 +137,7 @@ class Orchestrator:
             idx = torch.cat([idx, idx.new_zeros(pad)])
             noise = torch.cat([noise, noise.new_zeros(
                 (noise.shape[0], pad) + noise.shape[2:])], dim=1)
-        return self.bank[idx], noise
+        return self.local(self.bank[idx]), noise
 
     def sample_fleet(self, policy: policy_lib.Policy,
                      gen: torch.Generator) -> ppo_lib.Trajectory:
@@ -134,6 +165,7 @@ class Orchestrator:
     def evaluate(self, policy: policy_lib.Policy) -> float:
         """Deterministic (mean-action) episode on the held-out state ->
         normalized return, as the paper's test-state curve in Fig. 5."""
-        traj = rollout_lib.rollout(policy, self.env, self.test_state(),
+        traj = rollout_lib.rollout(policy, self.env,
+                                   self.local(self.test_state()),
                                    deterministic=True)
         return float(rollout_lib.normalized_return(traj)[0])

@@ -69,6 +69,31 @@ def normalized_return(traj: Trajectory) -> torch.Tensor:
     return episode_return(traj) / traj.rewards.shape[0]
 
 
+@torch.no_grad()
+def constant_action_return(env: Env, u0: torch.Tensor, value: float) -> float:
+    """Normalized episode return of a constant-action policy on initial
+    states u0 (B, *state_shape): the mean reward over envs, summed over
+    the `env.n_actions` steps, over `n_actions`.  The paper's static
+    baselines (Fig. 5 bottom: Smagorinsky C_s = 0.17, implicit LES
+    C_s = 0), for any Env.  Draws no random numbers; the step means stay
+    on the device until the episode ends and are summed on the host in
+    step order, as the reference sums them."""
+    state = EnvState(u=u0, t_step=torch.zeros((u0.shape[0],),
+                                              dtype=torch.int32,
+                                              device=u0.device))
+    action = torch.full((u0.shape[0],) + env.action_spec.shape, value,
+                        dtype=torch.float32, device=u0.device)
+    means = []
+    for _ in range(env.n_actions):
+        res = env.step(state, action)
+        state = res.state
+        means.append(torch.mean(res.reward))
+    total = 0.0
+    for m in torch.stack(means).tolist():
+        total += m
+    return total / env.n_actions
+
+
 def slice_traj(traj: Trajectory, n_envs: int) -> Trajectory:
     """Drop the padding rows: (T, B_pad, ...) -> (T, n_envs, ...)."""
     return Trajectory(

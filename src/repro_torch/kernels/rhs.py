@@ -46,9 +46,10 @@ _MAX_WARPS = MAX_THREADS // 32
 
 def plain_gradients(q_prim: torch.Tensor, cs_nodes: torch.Tensor,
                     d_matrix: torch.Tensor, inv_w_end: tuple[float, float], *,
-                    jac: float, delta: float):
+                    jac: float, delta: float, split=None):
     """BR1 gradient of (v, T) (..., 4, 3) and Smagorinsky nu_t."""
-    grad_prim = dgsem.dg_gradient(q_prim, None, d_matrix, inv_w_end, jac=jac)
+    grad_prim = dgsem.dg_gradient(q_prim, None, d_matrix, inv_w_end, jac=jac,
+                                  split=split)
     s_mag = equations.strain_magnitude(
         equations.strain_rate(grad_prim[..., 0:3, :]))
     return grad_prim, equations.eddy_viscosity(cs_nodes, delta, s_mag)
@@ -58,11 +59,13 @@ def plain_divergence(u: torch.Tensor, prim: tuple, grad_prim: torch.Tensor,
                      nu_t: torch.Tensor, d_matrix: torch.Tensor,
                      inv_w_end: tuple[float, float], *, jac,
                      gas: equations.GasParams,
-                     wall: tuple | None = None) -> torch.Tensor:
+                     wall: tuple | None = None, split=None) -> torch.Tensor:
     """-div(F_adv - F_visc) over the three directions: split-form volume,
     LLF + BR1-central surfaces.  `jac` is a scalar or one per direction.
     Periodic, unless `wall = (g_lo, g_hi)` gives the numerical fluxes of the
-    two y domain faces (the channel's walls)."""
+    two y domain faces (the channel's walls).  On a mesh split by x-slabs
+    (`split`) the x-faces cross ranks three times: the LLF traces of u, the
+    viscous-flux traces and the left faces of F*."""
     jacs = jac if isinstance(jac, (tuple, list)) else (jac,) * 3
     rhs = None
     for d in range(3):
@@ -70,10 +73,10 @@ def plain_divergence(u: torch.Tensor, prim: tuple, grad_prim: torch.Tensor,
             prim, equations.kennedy_gruber_flux, d_matrix, d)
         f_adv_nodes = equations.advective_flux(u, d)
         f_star_adv = equations.lax_friedrichs_flux(
-            *dgsem.neighbor_traces(u, d), d)
+            *dgsem.neighbor_traces(u, d, split), d)
         f_visc = equations.viscous_flux(u, grad_prim, nu_t, gas, d)
         vol_visc = dgsem.deriv_along(f_visc, d_matrix, d)
-        fv_left, fv_right = dgsem.neighbor_traces(f_visc, d)
+        fv_left, fv_right = dgsem.neighbor_traces(f_visc, d, split)
         f_star = f_star_adv - 0.5 * (fv_left + fv_right)
         lo_value = None
         if wall is not None and d == 1:
@@ -83,25 +86,34 @@ def plain_divergence(u: torch.Tensor, prim: tuple, grad_prim: torch.Tensor,
         lo, hi = dgsem._face_slices(f_adv_nodes - f_visc, d)
         div_d = dgsem.surface_lift(
             vol_adv - vol_visc, f_star - hi,
-            dgsem.left_faces(f_star, d, lo_value=lo_value) - lo, d,
+            dgsem.left_faces(f_star, d, lo_value=lo_value, split=split) - lo,
+            d,
             inv_w_end) * jacs[d]
         rhs = -div_d if rhs is None else rhs - div_d
     return rhs
 
 
 def plain_forcing(u: torch.Tensor, vel: torch.Tensor, w: torch.Tensor, *,
-                  forcing_a0: float, k_tke: float) -> torch.Tensor:
+                  forcing_a0: float, k_tke: float,
+                  split=None) -> torch.Tensor:
     """Lundgren linear forcing with the proportional TKE controller, from
-    whole-box quadrature means with the GLL weights `w`."""
+    whole-box quadrature means with the GLL weights `w`.  On a mesh split
+    by x-slabs (`split`) the local quadrature sums (momentum 3, kinetic
+    energy 1 a row) are summed over the ranks in one all-reduce and
+    divided by the whole box's element count."""
     w2 = w.to(u.dtype) * 0.5  # reference [-1,1] -> unit mass
     n_elem_total = u.shape[-7] * u.shape[-6] * u.shape[-5]
     mom = u[..., 1:4]
-    mom_mean = torch.einsum("...xyzijkc,i,j,k->...c", mom, w2, w2,
-                            w2) / n_elem_total
-    mom_fluct = mom - mom_mean[..., None, None, None, None, None, None, :]
     ke_density = 0.5 * torch.sum(mom * vel, dim=-1, keepdim=True)
-    k_now = torch.einsum("...xyzijkc,i,j,k->...c", ke_density, w2, w2,
-                         w2)[..., 0] / n_elem_total
+    mom_sum = torch.einsum("...xyzijkc,i,j,k->...c", mom, w2, w2, w2)
+    k_sum = torch.einsum("...xyzijkc,i,j,k->...c", ke_density, w2, w2, w2)
+    if split is not None:
+        sums = split.all_reduce_(torch.cat([mom_sum, k_sum], dim=-1))
+        mom_sum, k_sum = sums[..., :3], sums[..., 3:]
+        n_elem_total *= split.size
+    mom_mean = mom_sum / n_elem_total
+    mom_fluct = mom - mom_mean[..., None, None, None, None, None, None, :]
+    k_now = k_sum[..., 0] / n_elem_total
     a_eff = forcing_a0 * torch.clamp(
         k_tke / torch.clamp_min(k_now, 0.1 * k_tke), 0.0, 3.0)
     f_mom = a_eff[..., None, None, None, None, None, None, None] * mom_fluct
@@ -112,16 +124,22 @@ def plain_forcing(u: torch.Tensor, vel: torch.Tensor, w: torch.Tensor, *,
 def plain_rhs(u: torch.Tensor, cs_nodes: torch.Tensor, d_matrix: torch.Tensor,
               w: torch.Tensor, *, inv_w_end: tuple[float, float], jac: float,
               delta: float, gas: equations.GasParams, forcing_a0: float,
-              k_tke: float) -> torch.Tensor:
-    """The three parts composed, in the dtype of the inputs."""
+              k_tke: float, split=None,
+              gradients=plain_gradients) -> torch.Tensor:
+    """The three parts composed, in the dtype of the inputs.  `gradients`
+    computes the gradient and nu_t (`solver.kernel_grad_nut` puts the
+    component kernels there); `split` is the x-slab split of a mesh split
+    over ranks, whose x-faces cross ranks 5 times (twice in the gradient,
+    three times in the divergence) and whose box sums once."""
     rho, vel, p, temp = equations.conservative_to_primitive(u)
     prim = (rho, vel, p, u[..., 4] / rho)
     q_prim = torch.cat([vel, temp[..., None]], dim=-1)
-    grad_prim, nu_t = plain_gradients(q_prim, cs_nodes, d_matrix, inv_w_end,
-                                      jac=jac, delta=delta)
+    grad_prim, nu_t = gradients(q_prim, cs_nodes, d_matrix, inv_w_end,
+                                jac=jac, delta=delta, split=split)
     rhs = plain_divergence(u, prim, grad_prim, nu_t, d_matrix, inv_w_end,
-                           jac=jac, gas=gas)
-    return rhs + plain_forcing(u, vel, w, forcing_a0=forcing_a0, k_tke=k_tke)
+                           jac=jac, gas=gas, split=split)
+    return rhs + plain_forcing(u, vel, w, forcing_a0=forcing_a0, k_tke=k_tke,
+                               split=split)
 
 
 def navier_stokes_rhs_plain(u: torch.Tensor, cs_nodes: torch.Tensor,

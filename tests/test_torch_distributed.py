@@ -325,9 +325,12 @@ def test_slice_traj_equals_the_reference():
                                           np.asarray(getattr(want, field)))
 
 
-def test_elem_axis_raises():
-    with pytest.raises(NotImplementedError, match="elem_axis"):
-        Orchestrator(tenvs.make("burgers_reduced"),
+@pytest.mark.parametrize("name", ["channel_wm_reduced", "burgers_reduced"])
+def test_elem_axis_raises(name):
+    """Only the HIT envs split by their element axis: the others refuse
+    `elem_axis`, naming the ROADMAP item of their split."""
+    with pytest.raises(NotImplementedError, match="elem_axis.*A11d"):
+        Orchestrator(tenvs.make(name),
                      FleetConfig(n_envs=2, elem_axis="model"), device="cpu")
 
 

@@ -27,7 +27,9 @@ In order, and any failure exits non-zero:
      non-cubic mesh), the cluster
      instance also bit for bit against itself; the three
      channel kernels at the channel path's shapes (16 envs), the fleet's
-     channel sub-fleet's (8 envs) and beyond
+     channel sub-fleet's (8 envs), the split paths' (a channel_wm x-slab
+     of 3 ranks; dg_derivative3 and smagorinsky_nut also on a 24-DOF
+     x-slab of 2) and beyond
      (dg_derivative3 on both instances, the tiled one at every n from 2 to
      8 and C from 1 to 5; smagorinsky_nut on the strided views it reads in
      place, aligned or not, and a stride-0 C_s); flash
@@ -129,16 +131,27 @@ In order, and any failure exits non-zero:
      the rows one env off outside it), and env-steps/s beside that
      iteration's; then hit_les_24dof with its 16 envs each split over 2
      ranks by its x-slabs (`FleetConfig(elem_axis="model")` on a (data 1,
-     model 2) mesh, `split_rank`): one RL interval of 16 bank rows under a
-     fixed C_s field within TOL_SPLIT of the same staged assembly in one
-     process and within TOL of the fused kernel path (the state one env
-     off outside TOL_SPLIT), then one PPO iteration (no evaluation) that
-     launches dg_derivative3 (tiled) and smagorinsky_nut exactly 3,250
-     times a rank and the fused RHS never, params and Adam state bitwise
-     on both ranks, return_norm in [-1, 1], the step-0 rows within
-     TOL_FLEET_ROWS of one process's first RL step of the same assembly;
-     the ranks' times, the halo exchanges' and the gathers' seconds and
-     bytes, and env-steps/s beside the HIT path's;
+     model 2) mesh, `split_rank`, episodes cut to 10 RL steps): one RL
+     interval of 16 bank rows under a fixed C_s field within TOL_SPLIT of
+     the same staged assembly in one process and within TOL of the fused
+     kernel path (the state one env off outside TOL_SPLIT), one in bf16
+     within the bf16 TOL of the same assembly in bf16 in one process, then
+     one PPO iteration (no evaluation) that launches dg_derivative3
+     (tiled) and smagorinsky_nut exactly 650 times a rank and the fused
+     RHS never, params and Adam state bitwise on both ranks, return_norm
+     in [-1, 1], the step-0 rows within TOL_FLEET_ROWS of one process's
+     first RL step of the same assembly; the ranks' times, the halo
+     exchanges' and the gathers' seconds and bytes, and env-steps/s beside
+     the HIT path's; then channel_wm and burgers_96dof, 16 envs each, every
+     env split over 3 ranks by its element axis (a (data 1, model 3) mesh,
+     `split3_rank`, episodes cut to 5 RL steps): for each one RL interval
+     within TOL_SPLIT of the same assembly in one process and within TOL of
+     the unsplit path (the state one env off outside TOL_SPLIT), one PPO
+     iteration (no evaluation) with exact launches a rank (the channel 650
+     each of dg_derivative3 (tiled), smagorinsky_nut and wall_model_tau,
+     Burgers none), params and Adam state bitwise on the 3 ranks,
+     return_norm in [-1, 1], and each rank's exchanges and env-steps/s
+     beside one process's rollout of the same cut episode;
      hymba-1.5b serving (bf16 weights from a seed,
      `lm.greedy_generate` of 32 new tokens for 4 prompts of 2,048 Zipf
      tokens, then for 4 of 700) must launch flash_attention 32 times, all on
@@ -244,15 +257,23 @@ TOL_TRAIN_GRAD_NORM = 5e-3
 # above the largest; the control (the rows shifted by one env, what a
 # wrong shard layout gives) reads O(1).
 TOL_FLEET_ROWS = 2e-5
-# One hit_les_24dof env split over 2 ranks by its x-slabs against the same
-# staged assembly in one process (a group of one rank): only the order of
-# the forcing's box sums differs (the slabs' sums are added over the
-# ranks), and a slab's element-batched kernels and matmuls see half the
-# elements.  The CPU test pins 2e-6 (readings <= 2.4e-7,
-# tests/test_torch_elem_split.py); against the fused kernel path the
-# float32 TOL holds.  The control (the state one env off) reads O(1).
+# One env split over ranks by its element axis against the same assembly
+# in one process (a group of one rank): only the order of HIT's and
+# Burgers' forcing sums differs (the slabs' sums are added over the ranks),
+# and a slab's matmuls see fewer elements (cuBLAS may sum another way).
+# Readings of one RL interval of 16 envs on an H100 80GB HBM3 at 700 W:
+# hit_les_24dof over 2 ranks 3.85e-7 of max |u|, channel_wm over 3
+# 5.81e-7, burgers_96dof over 3 5.62e-7, the same in every run; the CPU
+# test pins 2e-6 too (tests/test_torch_elem_split.py).  Against the unsplit
+# path the float32 TOL holds.  The control (the state one env off) reads
+# 0.17 (the channel's bank rows differ little) to O(1).
 TOL_SPLIT = 2e-6
-SPLIT_ROWS = 16  # envs of the split run, the HIT path's
+SPLIT_ROWS = 16  # envs of each split run, the HIT path's
+# RL steps of the split runs' episodes, cut from 50 (hit_les_24dof), 20
+# (channel_wm) and 50 (burgers_96dof) to keep the run inside its limit:
+# every split RHS exchanges its faces through the host
+SPLIT_STEPS = {"hit_les_24dof": 10, "channel_wm": 5, "burgers_96dof": 5}
+SPLIT3_NAMES = ("channel_wm", "burgers_96dof")  # split over 3 ranks
 FLEET_NAMES = ("hit_les_24dof", "channel_wm", "burgers_96dof")
 
 
@@ -581,6 +602,15 @@ def zero_counts(counters: list) -> None:
             fn.instance_launches[key] = 0
 
 
+def cut_env(name: str):
+    """The registered env `name` with its episodes cut to
+    `SPLIT_STEPS[name]` RL steps."""
+    from repro_torch import envs
+
+    return envs.make(name, t_end=SPLIT_STEPS[name]
+                     * envs.make(name).cfg.dt_rl)
+
+
 def train(env_name: str, n_iter: int, counters: list,
           evaluate: bool = True) -> tuple:
     """`rl_train` on `env_name` with 16 envs, `n_iter` PPO iterations and,
@@ -822,10 +852,11 @@ def state_digests(runner) -> dict:
 def rank_worker(kind: str, out: str, ckpt: str) -> int:
     """One rank under torchrun (started by `distributed_phase`): `rl_train`
     (hit_les_24dof, 16 envs, one iteration), the fleet (`FLEET_NAMES` at
-    32 envs, at least 8 each, one synchronous iteration) or one
-    hit_les_24dof env split over the ranks by its x-slabs (`split_rank`),
-    each through its entry point over the ranks' mesh, every launch count 0
-    before it and read after.  The ranks' records, launch counts, launch counts by
+    32 envs, at least 8 each, one synchronous iteration), one
+    hit_les_24dof env split over the ranks by its x-slabs (`split_rank`)
+    or channel_wm and burgers_96dof envs split over them by their element
+    axis (`split3_rank`), each through its entry point over the ranks'
+    mesh, every launch count 0 before it and read after.  The ranks' records, launch counts, launch counts by
     instance, the batch of every rollout they ran and state digests are
     gathered; rank 0 writes them as JSON to `out` (and the fleet's
     first-step rows to `out`.pt)."""
@@ -855,10 +886,14 @@ def rank_worker(kind: str, out: str, ckpt: str) -> int:
             return rollout(policy, env, u0, **kwargs)
         return wrapped
 
+    runner = None
     if kind == "split":
         with patched(rollout_lib, "rollout", batch):
             runner = split_rank(ckpt, out, counters, result)
         wall, history = result.pop("wall_s"), result.pop("records")
+    elif kind == "split3":
+        with patched(rollout_lib, "rollout", batch):
+            split3_rank(ckpt, out, counters, result)
     elif kind == "rl_train":
         captured = []
 
@@ -904,13 +939,15 @@ def rank_worker(kind: str, out: str, ckpt: str) -> int:
                              for n, o in runner.forch.orchs.items()}
         if dist.get_rank() == 0:
             torch.save(first_rows(runner), out + ".pt")
-    result.update(
-        rank=dist.get_rank(), backend=dist.get_backend(), wall_s=wall,
-        records=history, launches=[fn.launches for fn in counters],
-        instances=[dict(rhs.fused_navier_stokes_rhs.instance_launches),
-                   dict(dg_derivative.dg_derivative3.instance_launches)],
-        digests=state_digests(runner),
-        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if runner is not None:
+        result.update(
+            wall_s=wall, records=history,
+            launches=[fn.launches for fn in counters],
+            instances=[dict(rhs.fused_navier_stokes_rhs.instance_launches),
+                       dict(dg_derivative.dg_derivative3.instance_launches)],
+            digests=state_digests(runner))
+    result.update(rank=dist.get_rank(), backend=dist.get_backend(),
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     total = torch.tensor(result["launches"], dtype=torch.int64)
     collectives.all_reduce_(total, dist.group.WORLD)
     ranks = [None] * dist.get_world_size()
@@ -923,26 +960,26 @@ def rank_worker(kind: str, out: str, ckpt: str) -> int:
 
 
 def split_rank(ckpt: str, out: str, counters: list, result: dict):
-    """One rank of hit_les_24dof split over a (data 1, model 2) mesh by its
-    x-slabs (`FleetConfig(elem_axis="model")`, 16 envs): first one RL
-    interval of the first 16 bank rows under a fixed C_s field (rank 0
-    writes the inputs and the gathered state to `out`.interval.pt), then
-    one PPO iteration through `Runner.train` (no evaluation), every launch
-    count 0 before it; rank 0 writes the gathered trajectory's step-0
-    rows to `out`.pt.  Records into `result` the interval's launches, the
-    exchanges' seconds and bytes of the iteration, and its wall time.
-    Returns the runner."""
+    """One rank of hit_les_24dof (episodes cut to `SPLIT_STEPS`) split
+    over a (data 1, model 2) mesh by its x-slabs
+    (`FleetConfig(elem_axis="model")`, 16 envs): first one RL interval of
+    the first 16 bank rows under a fixed C_s field in float32 and one in
+    bf16 (rank 0 writes the inputs and the gathered states to
+    `out`.interval.pt), then one PPO iteration through `Runner.train` (no
+    evaluation), every launch count 0 before each; rank 0 writes the
+    gathered trajectory's step-0 rows to `out`.pt.  Records into `result`
+    the intervals' launches, the exchanges' seconds and bytes of the
+    iteration, and its wall time.  Returns the runner."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch import envs
     from repro_torch.cfd import solver
     from repro_torch.core.orchestrator import FleetConfig
     from repro_torch.core.runner import Runner, RunnerConfig
     from repro_torch.launch import mesh as mesh_lib
 
     mesh_lib.init_distributed()
-    runner = Runner(envs.make("hit_les_24dof"),
+    runner = Runner(cut_env("hit_les_24dof"),
                     FleetConfig(n_envs=SPLIT_ROWS, elem_axis="model"),
                     run_cfg=RunnerConfig(eval_every=10**6,
                                          checkpoint_every=10**6,
@@ -954,14 +991,18 @@ def split_rank(ckpt: str, out: str, counters: list, result: dict):
     gen = torch.Generator(device=orch.device).manual_seed(7)
     cs = 0.12 + 0.1 * torch.rand((SPLIT_ROWS,) + (cfg.n_elem,) * 3,
                                  generator=gen, device=orch.device)
-    zero_counts(counters)
-    u = split.gather(solver.advance_rl_interval(
-        orch.env.slab(rows), split.slab(cs, 1), cfg, split), 1)
-    torch.cuda.synchronize()
-    result["interval_launches"] = [fn.launches for fn in counters]
+    intervals = {}
+    for precision in ("fp32", "bf16"):
+        zero_counts(counters)
+        intervals[precision] = split.gather(solver.advance_rl_interval(
+            orch.env.slab(rows), split.slab(cs, 1),
+            dataclasses.replace(cfg, precision=precision), split), 1)
+        torch.cuda.synchronize()
+        result[f"interval_launches_{precision}"] = [fn.launches
+                                                    for fn in counters]
     if dist.get_rank() == 0:
-        torch.save({k: v.cpu() for k, v in
-                    (("rows", rows), ("cs", cs), ("u", u))},
+        torch.save({"rows": rows.cpu(), "cs": cs.cpu(),
+                    **{f"u_{k}": v.cpu() for k, v in intervals.items()}},
                    out + ".interval.pt")
     trajs = []
     sample = orch.sample_fleet
@@ -987,22 +1028,94 @@ def split_rank(ckpt: str, out: str, counters: list, result: dict):
     return runner
 
 
+def split3_rank(ckpt: str, out: str, counters: list, result: dict) -> None:
+    """One rank of channel_wm and of burgers_96dof (`SPLIT3_NAMES`,
+    episodes cut to `SPLIT_STEPS`), each with 16 envs split over a (data 1,
+    model 3) mesh by its first element axis (`FleetConfig(elem_axis=
+    "model")`): first one RL interval of its first 16 bank rows under a
+    fixed action (rank 0 writes the inputs and the gathered state to
+    `out`.<name>.pt), then one PPO iteration through `Runner.train` (no
+    evaluation), every launch count 0 before each.  Records into
+    `result["envs"][name]` the interval's and the iteration's launches,
+    the fused RHS's and dg_derivative3's by instance, the rollouts'
+    batches, the records,
+    the exchanges' seconds and bytes, the wall time and the state digests;
+    into `result["launches"]` the iterations' launches summed."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.orchestrator import FleetConfig
+    from repro_torch.core.runner import Runner, RunnerConfig
+    from repro_torch.kernels import dg_derivative, rhs
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.init_distributed()
+    mesh = mesh_lib.make_fleet_mesh(model=3)
+    result["envs"], total = {}, [0] * len(counters)
+    for name in SPLIT3_NAMES:
+        runner = Runner(cut_env(name),
+                        FleetConfig(n_envs=SPLIT_ROWS, elem_axis="model"),
+                        run_cfg=RunnerConfig(
+                            eval_every=10**6, checkpoint_every=10**6,
+                            checkpoint_dir=os.path.join(ckpt, name)),
+                        mesh=mesh)
+        orch, split = runner.orch, runner.orch.split
+        spec = orch.env.action_spec
+        rows = orch.bank[:SPLIT_ROWS]
+        gen = torch.Generator(device=orch.device).manual_seed(7)
+        action = spec.low + (spec.high - spec.low) * (0.25 + 0.5 * torch.rand(
+            (SPLIT_ROWS,) + spec.shape, generator=gen, device=orch.device))
+        rec = {}
+        zero_counts(counters)
+        u = split.gather(orch.env.env.advance(orch.env.slab(rows), action,
+                                              split), 1)
+        torch.cuda.synchronize()
+        rec["interval_launches"] = [fn.launches for fn in counters]
+        if dist.get_rank() == 0:
+            torch.save({"rows": rows.cpu(), "action": action.cpu(),
+                        "u": u.cpu()}, f"{out}.{name}.pt")
+        split.halo_s = split.gather_s = 0.0
+        split.halo_bytes = split.gather_bytes = 0
+        result["batches"] = []
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        rec["records"] = runner.train(1, resume=False)
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = [fn.launches for fn in counters]
+        rec["instances"] = [
+            dict(rhs.fused_navier_stokes_rhs.instance_launches),
+            dict(dg_derivative.dg_derivative3.instance_launches)]
+        rec["batches"] = result["batches"]
+        rec["exchanges"] = {k: getattr(split, k) for k in (
+            "halo_s", "halo_bytes", "gather_s", "gather_bytes")}
+        rec["b_pad"] = orch.b_pad
+        rec["digests"] = state_digests(runner)
+        result["envs"][name] = rec
+        total = [a + b for a, b in zip(total, rec["launches"])]
+    result["launches"] = total
+    result["batches"] = [b for r in result["envs"].values()
+                         for b in r["batches"]]
+
+
 def split_phase(names: list, card: str, tmp: str, hit_one: list) -> dict:
     """(d) of `distributed_phase`: hit_les_24dof with 16 envs, each split
-    over 2 ranks by its x-slabs (`split_rank`).  Gates: the ranks' PPO
-    iteration launches dg_derivative3 (tiled) and smagorinsky_nut exactly
-    3,250 times each a rank and the fused RHS never; params and Adam state
-    bitwise on both ranks; return_norm in [-1, 1]; the split RL interval
-    within TOL_SPLIT of the same staged assembly in one process and within
-    TOL of the fused kernel path, the state one env off outside TOL_SPLIT;
-    the step-0 observations, actions and rewards within TOL_FLEET_ROWS of
-    one process's rollout of the same assembly (one RL step of the same
-    draws and initial policy), and the rows one env off outside it.  Prints the
+    over 2 ranks by its x-slabs (`split_rank`; episodes cut to
+    `SPLIT_STEPS`).  Gates: the ranks' PPO iteration launches
+    dg_derivative3 (tiled) and smagorinsky_nut exactly 650 times each a
+    rank and the fused RHS never; params and Adam state bitwise on both
+    ranks; return_norm in [-1, 1]; the split RL interval within TOL_SPLIT
+    of the same staged assembly in one process and within TOL of the fused
+    kernel path, the state one env off outside TOL_SPLIT; the split bf16
+    interval within the bf16 TOL of the same staged assembly in bf16 in
+    one process, the state one env off outside it; the step-0
+    observations, actions and rewards within TOL_FLEET_ROWS of one
+    process's rollout of the same assembly (one RL step of the same draws
+    and initial policy), and the rows one env off outside it.  Prints the
     ranks' times and exchanges and env-steps/s beside one process's
     (`hit_one`: the records of the HIT path's unsplit iterations)."""
     import torch
 
-    from repro_torch import envs
     from repro_torch.cfd import solver
     from repro_torch.core import collectives, policy as policy_lib
     from repro_torch.core import rollout as rollout_lib
@@ -1010,14 +1123,15 @@ def split_phase(names: list, card: str, tmp: str, hit_one: list) -> dict:
     from repro_torch.core.runner import iteration_seed
     from repro_torch.envs.hit_les import HITLESEnv
 
-    env = envs.make("hit_les_24dof")
+    env = cut_env("hit_les_24dof")
     cfg = env.cfg
     per_rollout = cfg.n_actions * cfg.n_substeps * 5
     out = os.path.join(tmp, "split.json")
     wall = torchrun(2, ["split", out, os.path.join(tmp, "split")], 400)
     got = read_ranks(out, 2, "split")
     print(f"hit_les_24dof, {SPLIT_ROWS} envs each split over 2 ranks by "
-          f"its x-slabs ({card}): {wall:.3f} s wall, torchrun included")
+          f"its x-slabs, episodes cut to {cfg.n_actions} RL steps ({card}): "
+          f"{wall:.3f} s wall, torchrun included")
     check_ranks("hit_les_24dof split", got,
                 [0, per_rollout, per_rollout, 0, 0, 0],
                 ({"cluster": 0, "two_pass": 0},
@@ -1031,22 +1145,30 @@ def split_phase(names: list, card: str, tmp: str, hit_one: list) -> dict:
               f"{rec['return_norm']:.6f}; halo exchanges and box sums "
               f"{ex['halo_s']:.3f} s, {ex['halo_bytes']} B received; the "
               f"velocity's gathers {ex['gather_s']:.3f} s, "
-              f"{ex['gather_bytes']} B received; the interval's launches "
-              f"{dict(zip(names, r['interval_launches']))}")
+              f"{ex['gather_bytes']} B received; the intervals' launches "
+              + ", ".join(f"{p} {dict(zip(names, r[f'interval_launches_{p}']))}"
+                          for p in ("fp32", "bf16")))
         if not -1.0 <= rec["return_norm"] <= 1.0:
             raise AssertionError(f"split: return_norm {rec}")
-        if r["interval_launches"] != [0, interval, interval, 0, 0, 0]:
-            raise AssertionError(f"split interval launches "
-                                 f"{r['interval_launches']}")
+        for p in ("fp32", "bf16"):
+            if r[f"interval_launches_{p}"] != [0, interval, interval, 0, 0,
+                                               0]:
+                raise AssertionError(f"split {p} interval launches "
+                                     f"{r[f'interval_launches_{p}']}")
 
     dev = torch.device("cuda", 0)
     data = torch.load(out + ".interval.pt")
-    rows, cs, u_split = (data[k].to(dev) for k in ("rows", "cs", "u"))
-    u_same = solver.advance_rl_interval(rows, cs, cfg,
-                                        collectives.ElemSplit())
+    rows, cs = (data[k].to(dev) for k in ("rows", "cs"))
+    one = collectives.ElemSplit()
+    u_split = data["u_fp32"].to(dev)
+    u_same = solver.advance_rl_interval(rows, cs, cfg, one)
     u_fused = solver.advance_rl_interval(rows, cs, cfg)
+    bf16 = dataclasses.replace(cfg, precision="bf16")
+    u_split16 = data["u_bf16"].to(dev)
+    u_same16 = solver.advance_rl_interval(rows, cs, bf16, one)
     for label, u in (("split", u_split), ("one process", u_same),
-                     ("fused", u_fused)):
+                     ("fused", u_fused), ("split bf16", u_split16),
+                     ("one process bf16", u_same16)):
         if not torch.isfinite(u).all():
             raise AssertionError(f"split interval: {label} state not "
                                  f"finite")
@@ -1056,12 +1178,18 @@ def split_phase(names: list, card: str, tmp: str, hit_one: list) -> dict:
                  u_same, TOL_SPLIT)
     parity(f"{label} vs the fused kernel path", u_split, u_fused,
            TOL["float32"])
-    rel = ((u_split.roll(1, 0) - u_same).abs().max()
-           / u_same.abs().max()).item()
-    print(f"    control, the split state one env off: rel={rel:.3e}")
-    if not rel > TOL_SPLIT:
-        raise AssertionError("split: the gate cannot tell the state one "
-                             "env off")
+    err16 = parity(f"{label} in bf16 vs the same staged assembly in bf16 in "
+                   f"one process", u_split16, u_same16, TOL["bfloat16"])
+    for lbl, got_u, want_u, tol in (("", u_split, u_same, TOL_SPLIT),
+                                   (" bf16", u_split16, u_same16,
+                                    TOL["bfloat16"])):
+        rel = ((got_u.roll(1, 0) - want_u).abs().max()
+               / want_u.abs().max()).item()
+        print(f"    control, the split{lbl} state one env off: "
+              f"rel={rel:.3e}")
+        if not rel > tol:
+            raise AssertionError(f"split{lbl}: the gate cannot tell the "
+                                 f"state one env off")
 
     # one process, the same assembly: the rollout's first step from the
     # same draws and initial policy
@@ -1093,17 +1221,134 @@ def split_phase(names: list, card: str, tmp: str, hit_one: list) -> dict:
     steps = SPLIT_ROWS * cfg.n_actions
     t_sample = max(r["records"][0]["t_sample_s"] for r in got["ranks"])
     rate = steps / t_sample
-    one = [steps / rec["t_sample_s"] for rec in hit_one]
+    full = SPLIT_ROWS * 50  # the HIT path's episodes: 50 RL steps
+    one = [full / rec["t_sample_s"] for rec in hit_one]
     print(f"hit_les_24dof env-steps/s ({card}): split over 2 ranks on the "
           f"card {rate:.3f} ({steps} env-steps in the slowest rank's "
           f"t_sample_s={t_sample:.3f}); one process, the fused kernel path "
-          f"(phase 5's iterations) "
+          f"(phase 5's iterations of 50 steps) "
           + ", ".join(f"{x:.3f}" for x in one)
           + f"; one process, the same staged assembly: one RL step of "
           f"{SPLIT_ROWS} envs in {t_step:.3f} s (the first of its shape)")
     return {"wall_s": wall, "ranks": got["ranks"], "interval_err": err,
-            "env_steps_per_s": rate, "one_rank_env_steps_per_s": one,
-            "one_step_s": t_step}
+            "interval_err_bf16": err16, "env_steps_per_s": rate,
+            "one_rank_env_steps_per_s": one, "one_step_s": t_step}
+
+
+def split3_phase(names: list, card: str, tmp: str) -> dict:
+    """(e) of `distributed_phase`: channel_wm and burgers_96dof, 16 envs
+    each, every env split over 3 ranks by its first element axis
+    (`split3_rank`; episodes cut to `SPLIT_STEPS`).  Gates, for each: the
+    split RL interval within TOL_SPLIT of the same assembly in one process
+    and within TOL of the unsplit path, the state one env off outside
+    TOL_SPLIT; every rank's launches exact (the channel's interval 130 and
+    iteration 650 of dg_derivative3 (tiled), smagorinsky_nut and
+    wall_model_tau a rank; Burgers none of any kernel) and their sum over
+    the ranks (all-reduced); params and Adam state bitwise on the 3 ranks;
+    return_norm in [-1, 1].  Prints the ranks' times, exchanges and
+    env-steps/s beside one process's rollout of the same cut episode on
+    the unsplit path."""
+    import torch
+
+    from repro_torch.core import collectives, policy as policy_lib
+    from repro_torch.core import rollout as rollout_lib
+
+    out = os.path.join(tmp, "split3.json")
+    wall = torchrun(3, ["split3", out, os.path.join(tmp, "split3")], 400)
+    got = read_ranks(out, 3, "split3")
+    print(f"{' and '.join(SPLIT3_NAMES)}, {SPLIT_ROWS} envs each, every env "
+          f"split over 3 ranks by its element axis ({card}): {wall:.3f} s "
+          f"wall, torchrun included")
+    dev = torch.device("cuda", 0)
+    readings, want_sum = {}, [0] * len(names)
+    for name in SPLIT3_NAMES:
+        env = cut_env(name)
+        cfg = env.cfg
+        interval = cfg.n_substeps * 5
+        chan = name.startswith("channel")
+        want = [0, 1, 1, 1, 0, 0] if chan else [0] * len(names)
+        rollout_n = cfg.n_actions * interval
+        print(f"  {name}: episodes cut to {cfg.n_actions} RL steps of "
+              f"{interval} RHS calls")
+        ranks = [dict(r, **r["envs"][name]) for r in got["ranks"]]
+        check_ranks(f"{name} split over 3 ranks", {
+            "ranks": ranks, "launches_sum": [
+                sum(r["launches"][i] for r in ranks)
+                for i in range(len(names))]},
+            [rollout_n * w for w in want],
+            ({"cluster": 0, "two_pass": 0},
+             {"tiled": rollout_n * want[1], "generic": 0}), names,
+            [SPLIT_ROWS])
+        want_sum = [a + 3 * rollout_n * w for a, w in zip(want_sum, want)]
+        for r in ranks:
+            (rec,) = r["records"]
+            ex = r["exchanges"]
+            print(f"  {name} rank {r['rank']}: t_sample_s="
+                  f"{rec['t_sample_s']:.3f} t_update_s="
+                  f"{rec['t_update_s']:.3f} return_norm="
+                  f"{rec['return_norm']:.6f}; halo_s={ex['halo_s']:.3f} "
+                  f"halo_bytes={ex['halo_bytes']} gather_s="
+                  f"{ex['gather_s']:.3f} gather_bytes={ex['gather_bytes']}; "
+                  f"the interval's launches "
+                  f"{dict(zip(names, r['interval_launches']))}")
+            if not -1.0 <= rec["return_norm"] <= 1.0:
+                raise AssertionError(f"{name} split: return_norm {rec}")
+            if r["interval_launches"] != [interval * w for w in want]:
+                raise AssertionError(f"{name} split interval launches "
+                                     f"{r['interval_launches']}")
+
+        data = torch.load(f"{out}.{name}.pt")
+        rows, action, u_split = (data[k].to(dev) for k in ("rows", "action",
+                                                            "u"))
+        u_same = env.advance(rows, action, collectives.ElemSplit())
+        u_whole = env.advance(rows, action)
+        for label, u in (("split", u_split), ("one process", u_same),
+                         ("unsplit", u_whole)):
+            if not torch.isfinite(u).all():
+                raise AssertionError(f"{name} split interval: {label} state "
+                                     f"not finite")
+        label = (f"one {name} RL interval of {SPLIT_ROWS} envs ({interval} "
+                 f"RHS calls) split over 3 ranks")
+        err = parity(f"{label} vs the same assembly in one process", u_split,
+                     u_same, TOL_SPLIT)
+        print(f"    bitwise: {torch.equal(u_split, u_same)}")
+        parity(f"{label} vs the unsplit path", u_split, u_whole,
+               TOL["float32"])
+        rel = ((u_split.roll(1, 0) - u_same).abs().max()
+               / u_same.abs().max()).item()
+        print(f"    control, the split state one env off: rel={rel:.3e}")
+        if not rel > TOL_SPLIT:
+            raise AssertionError(f"{name} split: the gate cannot tell the "
+                                 f"state one env off")
+
+        # one process, the unsplit path: one rollout of the same cut
+        # episode, the same envs, timed as the ranks' t_sample
+        policy = policy_lib.Policy(
+            policy_lib.PolicyConfig.from_specs(env.obs_spec,
+                                               env.action_spec),
+            torch.Generator().manual_seed(0)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout_lib.rollout(policy, env, rows, gen=torch.Generator(
+            device=dev).manual_seed(3))
+        torch.cuda.synchronize()
+        t_one = time.perf_counter() - t0
+        steps = SPLIT_ROWS * cfg.n_actions
+        t_sample = max(r["records"][0]["t_sample_s"] for r in ranks)
+        rate, one_rate = steps / t_sample, steps / t_one
+        print(f"{name} env-steps/s ({card}): split over 3 ranks on the card "
+              f"{rate:.3f} ({steps} env-steps in the slowest rank's "
+              f"t_sample_s={t_sample:.3f}); one process, the unsplit path, "
+              f"{one_rate:.3f} ({t_one:.3f} s): {rate / one_rate:.3f}x")
+        readings[name] = {"ranks": ranks, "interval_err": err,
+                          "env_steps_per_s": rate,
+                          "one_rank_env_steps_per_s": one_rate}
+    print(f"  launches summed over the 3 ranks and both envs (all-reduce): "
+          f"{dict(zip(names, got['launches_sum']))}")
+    if got["launches_sum"] != want_sum:
+        raise AssertionError(f"split3: summed launches {got['launches_sum']}"
+                             f", expected {want_sum}")
+    return {"wall_s": wall, "ranks": got["ranks"], "envs": readings}
 
 
 def baselines(counters: list, eval_return: float, card: str) -> int:
@@ -1302,7 +1547,8 @@ def distributed_phase(counters: list, per_rollout: dict, card: str,
     and Burgers sub-fleets revert nothing.  Prints env-steps/s beside the
     one-process iteration's.  (d) hit_les_24dof with each env split over 2
     ranks by its x-slabs (`split_phase`, against `hit_one`, the HIT path's
-    records).  Returns the readings."""
+    records).  (e) channel_wm and burgers_96dof with each env split over 3
+    ranks (`split3_phase`).  Returns the readings."""
     import torch
 
     names = [fn.__name__ for fn in counters]
@@ -1390,6 +1636,9 @@ def distributed_phase(counters: list, per_rollout: dict, card: str,
 
         # (d) one env split over 2 ranks by its x-slabs
         readings["split"] = split_phase(names, card, tmp, hit_one)
+
+        # (e) the channel and Burgers, every env split over 3 ranks
+        readings["split3"] = split3_phase(names, card, tmp)
     return readings
 
 
@@ -2184,7 +2433,8 @@ def main() -> int:
                     errs[f"fused_navier_stokes_rhs {kind}"] = err
 
     # the three channel kernels: the channel path's shapes first (16 envs),
-    # then the fleet's channel sub-fleet (8 envs)
+    # then the fleet's channel sub-fleet (8 envs), then the split paths'
+    # (a channel_wm x-slab of 3 ranks, a hit_les_24dof x-slab of 2)
     elapsed("phase 3: channel kernels")
     chan = envs.make("channel_wm").cfg
     kx, ky, kz = chan.n_elem
@@ -2205,6 +2455,10 @@ def main() -> int:
                     ("fleet channel", 8 * kx * ky * kz, n, 4,
                      ("tiled", "generic")),
                     ("HIT n=6", 16 * 64, 6, 4, ("tiled", "generic")),
+                    ("channel x-slab of 3", 16 * ky * kz, n, 4,
+                     ("tiled", "generic")),
+                    ("HIT n=6 x-slab of 2", 16 * 32, 6, 4,
+                     ("tiled", "generic")),
                     ("n=9", 577, 9, 4, ("generic",))]
         dg_cases += [(f"n={nn} C={c}", b, nn, c, ("tiled",))
                      for nn in range(2, 9) for c in range(1, 6)
@@ -2232,8 +2486,10 @@ def main() -> int:
         # point (48 bytes) and 9 values (not 16-byte aligned) into a larger
         # buffer, with a stride-0 C_s, and a point stride of 60 (more than
         # the kernel stages); P of the channel path (16 envs), of the
-        # fleet's channel sub-fleet (8 envs) and a ragged one
-        for p_pts in (p_nodes, p_nodes // 2, 1007):
+        # fleet's channel sub-fleet (8 envs), of a channel x-slab of 3
+        # ranks, of a 24-DOF x-slab of 2 and a ragged one
+        for p_pts in (p_nodes, p_nodes // 2, p_nodes // kx, 16 * 32 * 6**3,
+                      1007):
             for label, offset, s_p, cs_stride0 in (
                     ("contiguous", 0, 9, False),
                     ("rows of (P, 4, 3)", 0, 12, False),
@@ -2263,8 +2519,9 @@ def main() -> int:
                         and dtype == torch.float32:
                     errs["smagorinsky_nut"] = err
         # matching-point speeds across the viscous sublayer and the log
-        # layer: one wall, and both walls in one batch as the path calls it
-        for p_pts in (p_wall, 2 * p_wall):
+        # layer: one wall, both walls in one batch as the path calls it,
+        # and both walls of a channel x-slab of 3 ranks
+        for p_pts in (p_wall, 2 * p_wall, 2 * p_wall // kx):
             up = torch.logspace(-3, math.log10(1.6), p_pts).to(dev, dtype)
             rho = (0.9 + 0.2 * torch.rand((p_pts,), generator=gen)).to(
                 dev, dtype)
@@ -2858,7 +3115,9 @@ def main() -> int:
                                hit_history)
     for label, key in (("rl_train over 2 ranks", "rl_train"),
                        ("fleet over 3 ranks", "fleet"),
-                       ("hit_les_24dof split over 2 ranks", "split")):
+                       ("hit_les_24dof split over 2 ranks", "split"),
+                       ("channel_wm and burgers_96dof split over 3 ranks",
+                        "split3")):
         summed = [sum(r["launches"][i] for r in ranked[key]["ranks"])
                   for i in range(4)]
         for name, n_ in zip(names[:4], summed):

@@ -12,7 +12,8 @@ tests do); no path falls back to the CPU on its own.
 `CONV_ALLOW_TF32` is the package's choice of precision for the policy's
 float32 convolutions (cuDNN's TF32 flag), False by default: full float32,
 the precision of the reference and of every parity pin.  `conv_precision`
-applies it around the rollout and each PPO epoch, forward and backward.
+applies it around the rollout and each PPO epoch, forward and backward,
+with cuDNN's deterministic algorithms.
 """
 from __future__ import annotations
 
@@ -36,12 +37,17 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 @contextlib.contextmanager
 def conv_precision():
     """Set `torch.backends.cudnn.allow_tf32` to `CONV_ALLOW_TF32` (read at
-    entry) inside the block and put the caller's value back after it.
-    cuDNN reads the flag when each convolution launches, so the block must
-    hold the backward pass too.  Usable as a decorator."""
-    before = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = CONV_ALLOW_TF32
+    entry) and `torch.backends.cudnn.deterministic` to True inside the
+    block, and put the caller's values back after it.  cuDNN reads the
+    flags when each convolution launches, so the block must hold the
+    backward pass too.  Deterministic algorithms keep ranks that run the
+    same update on the same trajectory bitwise equal: on an H100 the
+    weight gradient of the 1-D policy's convolutions otherwise differed
+    between ranks.  Usable as a decorator."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32, cudnn.deterministic = CONV_ALLOW_TF32, True
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = before
+        cudnn.allow_tf32, cudnn.deterministic = before

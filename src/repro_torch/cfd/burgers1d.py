@@ -20,6 +20,11 @@ The discretization is the GLL machinery of the 3-D solver at 1-D:
 
 No kernel of the TPU package lies on this path: the RHS is staged PyTorch,
 about forty small operations a call, looped in Python over the substeps.
+
+A field split over ranks by its elements (`core.collectives.ElemSplit`,
+passed as `split`) takes its five element rolls through the split's `roll`
+and its forcing's two quadrature sums through one all-reduce a row; with
+`split=None` the code is the unsplit one.
 """
 from __future__ import annotations
 
@@ -206,77 +211,92 @@ def _surface_lift(vol: torch.Tensor, jump_right: torch.Tensor,
     return vol
 
 
-def dg_gradient(us: torch.Tensor, cfg: BurgersConfig,
-                ops: dict) -> torch.Tensor:
+def _roll(x: torch.Tensor, shifts: int, split) -> torch.Tensor:
+    """The periodic roll of (..., K) along the element axis: through
+    `split` on a split field, else `torch.roll`."""
+    if split is not None:
+        return split.roll(x, shifts, x.ndim - 1)
+    return torch.roll(x, shifts=shifts, dims=-1)
+
+
+def dg_gradient(us: torch.Tensor, cfg: BurgersConfig, ops: dict,
+                split=None) -> torch.Tensor:
     """BR1 gradient du/dx of the nodal scalar field us (..., K, n)."""
     vol = us @ ops["D"].T
     lo, hi = us[..., 0], us[..., -1]
-    u_right = torch.roll(lo, shifts=-1, dims=-1)  # neighbor across face e|e+1
+    u_right = _roll(lo, -1, split)  # neighbor across face e|e+1
     u_star_right = 0.5 * (hi + u_right)
-    u_star_left = torch.roll(u_star_right, shifts=1, dims=-1)
+    u_star_left = _roll(u_star_right, 1, split)
     du = _surface_lift(vol, u_star_right - hi, u_star_left - lo,
                        ops["inv_w_end"])
     return du * cfg.jac
 
 
 def burgers_rhs(us: torch.Tensor, c_nodes: torch.Tensor, cfg: BurgersConfig,
-                ops: dict) -> torch.Tensor:
+                ops: dict, split=None) -> torch.Tensor:
     """-d/dx(u^2/2 - nu_eff du/dx) + forcing on the nodal field us
-    (..., K, n)."""
+    (..., K, n); with `split` us and c_nodes are this rank's elements."""
     d_matrix = ops["D"]
     # --- advective: entropy-conservative split form + LLF surface ----------
     a, b = us[..., :, None], us[..., None, :]
     f_sharp = (a * a + a * b + b * b) / 6.0
     vol_adv = 2.0 * torch.sum(d_matrix * f_sharp, dim=-1)
     lo, hi = us[..., 0], us[..., -1]
-    u_right = torch.roll(lo, shifts=-1, dims=-1)
+    u_right = _roll(lo, -1, split)
     lam = torch.maximum(torch.abs(hi), torch.abs(u_right))
     f_star_adv = 0.25 * (hi**2 + u_right**2) - 0.5 * lam * (u_right - hi)
     # --- viscous: BR1 gradient, eddy viscosity, central surface ------------
-    du = dg_gradient(us, cfg, ops)
+    du = dg_gradient(us, cfg, ops, split)
     nu_t = (c_nodes * cfg.delta_filter) ** 2 * torch.abs(du)
     f_visc = (cfg.nu + nu_t) * du
     vol_visc = f_visc @ d_matrix.T
     fv_lo, fv_hi = f_visc[..., 0], f_visc[..., -1]
-    f_star_visc = 0.5 * (fv_hi + torch.roll(fv_lo, shifts=-1, dims=-1))
+    f_star_visc = 0.5 * (fv_hi + _roll(fv_lo, -1, split))
     # --- combined strong-form divergence -----------------------------------
     vol = vol_adv - vol_visc
     f_nodes_lo = 0.5 * lo**2 - fv_lo
     f_nodes_hi = 0.5 * hi**2 - fv_hi
     f_star = f_star_adv - f_star_visc
-    f_star_left = torch.roll(f_star, shifts=1, dims=-1)
+    f_star_left = _roll(f_star, 1, split)
     div = _surface_lift(vol, f_star - f_nodes_hi, f_star_left - f_nodes_lo,
                         ops["inv_w_end"]) * cfg.jac
     rhs = -div
     # --- linear forcing on fluctuations with energy controller -------------
+    # whole-domain quadrature sums: on a split field the ranks' sums, added
+    # in one all-reduce; divided by the whole domain's element count
     w = ops["w"] * 0.5  # reference [-1, 1] -> unit mass
-    u_mean = torch.sum(us * w, dim=(-2, -1)) / cfg.n_elem
+    u_sum = torch.sum(us * w, dim=(-2, -1))
+    k_sum = 0.5 * torch.sum(us**2 * w, dim=(-2, -1))
+    if split is not None:
+        u_sum, k_sum = split.all_reduce_(torch.stack([u_sum, k_sum]))
+    u_mean = u_sum / cfg.n_elem
     fluct = us - u_mean[..., None, None]
-    k_now = 0.5 * torch.sum(us**2 * w, dim=(-2, -1)) / cfg.n_elem
+    k_now = k_sum / cfg.n_elem
     a_eff = cfg.forcing_a0 * torch.clamp(
         cfg.k_energy / torch.clamp_min(k_now, 0.1 * cfg.k_energy), 0.0, 3.0)
     return rhs + a_eff[..., None, None] * fluct
 
 
 def rk_substep(us: torch.Tensor, c_nodes: torch.Tensor, cfg: BurgersConfig,
-               ops: dict) -> torch.Tensor:
+               ops: dict, split=None) -> torch.Tensor:
     """One Carpenter-Kennedy RK5(4) low-storage step of size cfg.dt."""
     dt = _rounded(cfg.dt, us.dtype)
     du = torch.zeros_like(us)
     for stage in range(5):
-        rhs = burgers_rhs(us, c_nodes, cfg, ops)
+        rhs = burgers_rhs(us, c_nodes, cfg, ops, split)
         du = _rounded(_RK_A[stage], us.dtype) * du + dt * rhs
         us = us + _rounded(_RK_B[stage], us.dtype) * du
     return us
 
 
 def advance_rl_interval(u: torch.Tensor, c_elem: torch.Tensor,
-                        cfg: BurgersConfig) -> torch.Tensor:
+                        cfg: BurgersConfig, split=None) -> torch.Tensor:
     """Advance the Burgers LES by Delta t_RL under fixed per-element C (one
-    MDP transition).  u: (..., K, n, 1), c_elem: (..., K)."""
+    MDP transition).  u: (..., K, n, 1), c_elem: (..., K); with `split`
+    this rank's elements of both."""
     ops = cfg.operators(u.device)
     c_nodes = c_elem[..., None].expand(tuple(c_elem.shape) + (cfg.n,))
     us = u[..., 0]
     for _ in range(cfg.n_substeps):
-        us = rk_substep(us, c_nodes, cfg, ops)
+        us = rk_substep(us, c_nodes, cfg, ops, split)
     return us[..., None]

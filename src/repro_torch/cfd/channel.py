@@ -30,6 +30,11 @@ per direction.  With `use_kernels` the gradient, eddy viscosity and wall
 model go through the component kernels (`solver.kernel_grad_nut` and
 `kernels/wall_model.py`): the CUDA kernels for CUDA tensors, their plain
 versions for CPU tensors.
+
+A channel split over ranks by its x-slabs (`core.collectives.ElemSplit`,
+passed as `split`) exchanges its x-faces through the split: x is periodic,
+and the walls, their matching states and the body force are local to an
+x-slab.  With `split=None` the code is the unsplit one.
 """
 from __future__ import annotations
 
@@ -202,7 +207,9 @@ def reference_profile(cfg: ChannelConfig) -> np.ndarray:
 
 def mean_velocity_profile(u: torch.Tensor, cfg: ChannelConfig,
                           ops: dict) -> torch.Tensor:
-    """x-z quadrature average of streamwise velocity: (..., Ky, n)."""
+    """x-z quadrature average of streamwise velocity: (..., Ky, n).  u is
+    the whole channel (a split channel gathers its state first): the
+    division is by the whole channel's Kx * Kz."""
     _, vel, _, _ = equations.conservative_to_primitive(u)
     w = ops["w"] * 0.5
     kx, _, kz = cfg.n_elem
@@ -397,12 +404,13 @@ def wall_fluxes(u: torch.Tensor, scale_bot: torch.Tensor,
 # --- RHS / stepping ---------------------------------------------------------
 def channel_rhs(u: torch.Tensor, scale_bot: torch.Tensor,
                 scale_top: torch.Tensor, cfg: ChannelConfig,
-                ops: dict) -> torch.Tensor:
+                ops: dict, split=None) -> torch.Tensor:
     """-div(F_adv - F_visc) + pressure-gradient forcing, walls in y.
 
     The periodic solver's assembly (`kernels/rhs.py:plain_divergence`) with
     the y surface exchange routed through the wall fluxes; `cfg.wall=False`
-    skips every override and is the periodic path."""
+    skips every override and is the periodic path.  With `split` u and the
+    scales are this rank's x-slabs; the x-faces cross ranks 5 times."""
     d_matrix, inv_w_end = ops["D"], ops["inv_w_end"]
     rho, vel, p, temp = equations.conservative_to_primitive(u)
     prim = (rho, vel, p, u[..., 4] / rho)
@@ -422,10 +430,11 @@ def channel_rhs(u: torch.Tensor, scale_bot: torch.Tensor,
     if cfg.use_kernels:
         grad_prim, nu_t = kernel_grad_nut(q_prim, cs_nodes, d_matrix,
                                           inv_w_end, cfg.delta_filter,
-                                          jac=cfg.jacs, bc=bc_grad)
+                                          jac=cfg.jacs, bc=bc_grad,
+                                          split=split)
     else:
         grad_prim = dgsem.dg_gradient(q_prim, None, d_matrix, inv_w_end,
-                                      jac=cfg.jacs, bc=bc_grad)
+                                      jac=cfg.jacs, bc=bc_grad, split=split)
         s_mag = equations.strain_magnitude(
             equations.strain_rate(grad_prim[..., 0:3, :]))
         nu_t = equations.eddy_viscosity(cs_nodes, cfg.delta_filter, s_mag)
@@ -434,7 +443,7 @@ def channel_rhs(u: torch.Tensor, scale_bot: torch.Tensor,
             else None)
     rhs = rhs_kernel.plain_divergence(u, prim, grad_prim, nu_t, d_matrix,
                                       inv_w_end, jac=cfg.jacs, gas=cfg.gas,
-                                      wall=wall)
+                                      wall=wall, split=split)
 
     # constant streamwise pressure-gradient forcing
     f_mom_x = rho * cfg.f_x
@@ -445,26 +454,28 @@ def channel_rhs(u: torch.Tensor, scale_bot: torch.Tensor,
 
 def rk_substep(u: torch.Tensor, scale_bot: torch.Tensor,
                scale_top: torch.Tensor, cfg: ChannelConfig,
-               ops: dict) -> torch.Tensor:
+               ops: dict, split=None) -> torch.Tensor:
     """One Carpenter-Kennedy RK5(4) low-storage step of size cfg.dt."""
     dt = _rounded(cfg.dt, u.dtype)
     du = torch.zeros_like(u)
     for stage in range(5):
         # the cast keeps the carry in the rollout compute dtype
-        rhs = channel_rhs(u, scale_bot, scale_top, cfg, ops).to(u.dtype)
+        rhs = channel_rhs(u, scale_bot, scale_top, cfg, ops,
+                          split).to(u.dtype)
         du = _rounded(_RK_A[stage], u.dtype) * du + dt * rhs
         u = u + _rounded(_RK_B[stage], u.dtype) * du
     return u
 
 
 def advance_rl_interval(u: torch.Tensor, scale_bot: torch.Tensor,
-                        scale_top: torch.Tensor,
-                        cfg: ChannelConfig) -> torch.Tensor:
+                        scale_top: torch.Tensor, cfg: ChannelConfig,
+                        split=None) -> torch.Tensor:
     """Advance the channel LES by Delta t_RL under fixed wall-stress scaling
     (one MDP transition).  u: (..., Kx, Ky, Kz, n, n, n, 5); scale_bot /
     scale_top: per-wall-element scaling (..., Kx, Kz), broadcast to face
     nodes here.  With `cfg.precision == "bf16"` the state advances in
-    bfloat16 and is cast back to float32 at the end."""
+    bfloat16 and is cast back to float32 at the end.  With `split` u and
+    the scales are this rank's x-slabs of a split channel."""
     ops = cfg.operators(u.device)
     n = cfg.n
     dtype = cfg.compute_dtype
@@ -475,5 +486,5 @@ def advance_rl_interval(u: torch.Tensor, scale_bot: torch.Tensor,
         # the operator matrices follow the compute dtype, as in the reference
         ops = dict(ops, D=ops["D"].to(dtype), w=ops["w"].to(dtype))
     for _ in range(cfg.n_substeps):
-        u = rk_substep(u, sb, st, cfg, ops)
+        u = rk_substep(u, sb, st, cfg, ops, split)
     return u.to(torch.float32)

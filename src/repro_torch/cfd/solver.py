@@ -179,12 +179,13 @@ def navier_stokes_rhs(u: torch.Tensor, cs_nodes: torch.Tensor,
     kernels/rhs.py.
 
     On a mesh split over ranks by its x-slabs (`split`, a
-    `core.collectives.ElemSplit`; u is this rank's slabs; float32) the
-    fused kernel cannot run: it wraps whole periodic meshes and takes
-    whole-box means inside.  There `use_kernels` means the channel's
-    staged assembly: `kernel_grad_nut` (the `dg_derivative3` and
-    `smagorinsky_nut` kernels, one launch each), then `plain_divergence`
-    and the forcing, their x-faces and box sums exchanged through `split`.
+    `core.collectives.ElemSplit`; u is this rank's slabs) the fused kernel
+    cannot run: it wraps whole periodic meshes and takes whole-box means
+    inside.  There `use_kernels` means the channel's staged assembly:
+    `kernel_grad_nut` (the `dg_derivative3` and `smagorinsky_nut` kernels,
+    one launch each), then `plain_divergence` and the forcing, their
+    x-faces and box sums exchanged through `split`; in bf16 the staged
+    parts run in bf16, as the unsplit staged assembly does.
     """
     kw = dict(inv_w_end=ops["inv_w_end"], jac=cfg.dg.jac,
               delta=cfg.delta_filter, forcing_a0=cfg.forcing_a0,
@@ -230,13 +231,9 @@ def advance_rl_interval(u: torch.Tensor, cs_elem: torch.Tensor,
     """Advance the LES by Delta t_RL under fixed per-element C_s (one MDP
     transition).  With `cfg.precision == "bf16"` the state is advanced in
     bfloat16 and cast back to float32 at the end.  With `split` u and
-    cs_elem are this rank's x-slabs of a split mesh (float32 only)."""
+    cs_elem are this rank's x-slabs of a split mesh."""
     ops = cfg.operators(u.device)
     dtype = cfg.compute_dtype
-    if split is not None and dtype != torch.float32:
-        raise NotImplementedError(
-            "a split mesh advances in float32 only; bf16 there is ROADMAP "
-            "A11d")
     # contiguous: the fused kernel reads one C_s per node
     cs_nodes = broadcast_cs(cs_elem, cfg).to(dtype).contiguous()
     u = u.to(dtype)

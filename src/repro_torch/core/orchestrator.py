@@ -14,11 +14,12 @@ padded to a multiple of the shard count (pad rows replay bank row 0 with
 zero noise); each rank rolls out its contiguous rows, and the rows are
 gathered and sliced back to the real count before GAE sees them.
 
-With `FleetConfig.elem_axis` (HIT only) each env is also split by its
-x-slabs over that mesh axis (the paper's several ranks per environment):
-the env becomes `env.split_x(ElemSplit)` over the axis's group, each rank
-of a group takes its x-slabs of the rows it draws, and the policy, the
-trajectory and the update stay whole and replicated over the group.
+With `FleetConfig.elem_axis` each env is also split by its first element
+axis over that mesh axis (the paper's several ranks per environment; x for
+HIT and the channel, the only axis for Burgers): the env becomes
+`env.split_x(ElemSplit)` over the axis's group, each rank of a group takes
+its slabs of the rows it draws, and the policy, the trajectory and the
+update stay whole and replicated over the group.
 Without a mesh the axis has one rank: the split assembly with no
 exchange.
 """
@@ -85,14 +86,12 @@ class Orchestrator:
         self.bank = elastic.replicate(make_bank, mesh, self.device)
 
     def _split_env(self, env: Env, fleet: FleetConfig, mesh) -> Env:
-        """`env` split by its x-slabs over the ranks of `fleet.elem_axis`
-        (`self.split`)."""
+        """`env` split by its first element axis over the ranks of
+        `fleet.elem_axis` (`self.split`)."""
         split_x = getattr(env, "split_x", None)
         if split_x is None:
-            raise NotImplementedError(
-                f"FleetConfig.elem_axis: only the HIT envs split by their "
-                f"element axis, not {type(env).__name__}; the channel and "
-                f"Burgers split is ROADMAP A11d")
+            raise TypeError(f"FleetConfig.elem_axis: {type(env).__name__} "
+                            f"has no split_x")
         if fleet.elem_axis in fleet.env_axes:
             raise ValueError(f"elem_axis {fleet.elem_axis!r} is also an env "
                              f"axis {fleet.env_axes}")
@@ -103,7 +102,7 @@ class Orchestrator:
         return split_x(self.split)
 
     def local(self, u: torch.Tensor) -> torch.Tensor:
-        """This rank's part of whole states: its x-slabs on a split env."""
+        """This rank's part of whole states: its slabs on a split env."""
         return u if self.split is None else self.env.slab(u)
 
     def draw_initial_states(self, gen: torch.Generator,
@@ -124,7 +123,7 @@ class Orchestrator:
         the real env count from `gen` in the order of `draw_initial_states`
         + `rollout`, so the real rows are those of an unsharded rollout
         from the same generator; pad rows replay bank row 0 with zero
-        noise.  On a split env u0 is this rank's x-slabs of the rows; the
+        noise.  On a split env u0 is this rank's slabs of the rows; the
         noise is the whole env's."""
         n = self.fleet.n_envs
         pad = self.b_pad - n

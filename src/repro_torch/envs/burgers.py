@@ -8,6 +8,10 @@ by the forcing-scale rms velocity u_rms, (..., K, n, 1).
 
 Registry overrides reach every `BurgersConfig` field, e.g.
 `envs.make("burgers_reduced", t_end=1.0)`.
+
+`BurgersEnv.split_x(split)` is the env split over the ranks of a group by
+its elements (`base.SplitEnv`), as the orchestrator builds it for
+`FleetConfig.elem_axis`.
 """
 from __future__ import annotations
 
@@ -17,7 +21,8 @@ import torch
 
 from ..cfd import burgers1d, spectra
 from ..cfd.burgers1d import BurgersConfig
-from .base import ActionSpec, ChannelSpec, EnvState, ObsSpec, StepResult
+from .base import (ActionSpec, ChannelSpec, EnvState, ObsSpec, SplitEnv,
+                   StepResult, guard)
 from .registry import register
 
 
@@ -60,24 +65,41 @@ class BurgersEnv:
     def observe(self, state: EnvState) -> torch.Tensor:
         return state.u / self.cfg.u_rms
 
+    def advance(self, u: torch.Tensor, action: torch.Tensor,
+                split=None) -> torch.Tensor:
+        """u advanced by one RL interval under `action` (the whole env's).
+        With `split` u is this rank's elements, and it takes their C."""
+        c_elem = torch.clamp(action, 0.0, self.cfg.c_max)
+        if split is not None:
+            c_elem = split.slab(c_elem, c_elem.ndim - 1)
+        return burgers1d.advance_rl_interval(u, c_elem, self.cfg, split)
+
+    def outcome(self, u: torch.Tensor, finite: torch.Tensor,
+                t_step: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(obs, reward, done) of the guarded whole state u at `t_step`:
+        the reward is floored at -1 where the advance was not finite."""
+        cfg = self.cfg
+        e_les = burgers1d.les_spectrum(u, cfg)
+        ell = spectra.spectral_error(e_les, self.e_ref(u.device), cfg.k_max)
+        reward = torch.where(finite, spectra.reward_from_error(ell, cfg.alpha),
+                             torch.full_like(ell, -1.0))
+        return (self.observe(EnvState(u, t_step)), reward,
+                t_step >= cfg.n_actions)
+
     def step(self, state: EnvState, action: torch.Tensor) -> StepResult:
         """One MDP transition with the blow-up guard of the HIT scenario: a
         non-finite advance reverts the state and floors the reward at -1."""
-        cfg = self.cfg
-        c_elem = torch.clamp(action, 0.0, cfg.c_max)
-        u_next = burgers1d.advance_rl_interval(state.u, c_elem, cfg)
-        finite = torch.isfinite(u_next).flatten(start_dim=u_next.ndim - 3
-                                                ).all(-1)
-        u_next = torch.where(finite[..., None, None, None], u_next, state.u)
-        e_les = burgers1d.les_spectrum(u_next, cfg)
-        ell = spectra.spectral_error(e_les, self.e_ref(u_next.device),
-                                     cfg.k_max)
-        reward = torch.where(finite, spectra.reward_from_error(ell, cfg.alpha),
-                             torch.full_like(ell, -1.0))
+        u_next, finite = guard(self.advance(state.u, action), state.u, 3)
         t_next = state.t_step + 1
-        next_state = EnvState(u=u_next, t_step=t_next)
-        return StepResult(next_state, self.observe(next_state), reward,
-                          t_next >= cfg.n_actions)
+        return StepResult(EnvState(u_next, t_next),
+                          *self.outcome(u_next, finite, t_next))
+
+    def split_x(self, split) -> SplitEnv:
+        """This env split by its elements, axis 1 of (B, K, n, 1), over
+        `split`'s ranks (`SplitEnv`): one gather of the state a step gives
+        the observation and the reward's spectrum of the whole field."""
+        return SplitEnv(self, split, self.cfg.n_elem, state_ndim=3)
 
 
 @register("burgers_96dof")

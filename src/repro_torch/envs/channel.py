@@ -19,6 +19,10 @@ Reward : 2 exp(-l/alpha) - 1 with l the quadrature-weighted relative L2
 
 Registry overrides reach every `ChannelConfig` field, e.g.
 `envs.make("channel_wm", precision="bf16")` or `use_kernels=False`.
+
+`ChannelEnv.split_x(split)` is the env split over the ranks of a group by
+its x-slabs (`base.SplitEnv`), as the orchestrator builds it for
+`FleetConfig.elem_axis`; y is bounded by the walls, x is periodic.
 """
 from __future__ import annotations
 
@@ -28,8 +32,8 @@ import torch
 
 from ..cfd import channel, spectra
 from ..cfd.channel import ChannelConfig
-from .base import (ActionSpec, ChannelSpec, EnvState, ObsSpec, StepResult,
-                   velocity_channels)
+from .base import (ActionSpec, ChannelSpec, EnvState, ObsSpec, SplitEnv,
+                   StepResult, guard, velocity_channels)
 from .registry import register
 
 
@@ -101,25 +105,44 @@ class ChannelEnv:
         grid = tuple(a.shape[:-1]) + (kx, kz)
         return a[..., : kx * kz].reshape(grid), a[..., kx * kz:].reshape(grid)
 
+    def advance(self, u: torch.Tensor, action: torch.Tensor,
+                split=None) -> torch.Tensor:
+        """u advanced by one RL interval under `action` (the whole env's).
+        With `split` u is this rank's x-slabs, and it takes its x rows of
+        each wall's (Kx, Kz) action grid."""
+        scales = self._split_action(action)
+        if split is not None:
+            scales = tuple(split.slab(a, a.ndim - 2) for a in scales)
+        return channel.advance_rl_interval(u, *scales, self.cfg, split)
+
+    def outcome(self, u: torch.Tensor, finite: torch.Tensor,
+                t_step: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(obs, reward, done) of the guarded whole state u at `t_step`:
+        the reward is floored at -1 where the advance was not finite."""
+        cfg = self.cfg
+        ops = cfg.operators(u.device)
+        prof = channel.mean_velocity_profile(u, cfg, ops)
+        ell = channel.profile_error(prof, self.u_ref(u.device), ops)
+        reward = torch.where(finite, spectra.reward_from_error(ell, cfg.alpha),
+                             torch.full_like(ell, -1.0))
+        return (self.observe(EnvState(u, t_step)), reward,
+                t_step >= cfg.n_actions)
+
     def step(self, state: EnvState, action: torch.Tensor) -> StepResult:
         """One MDP transition with the blow-up guard: a non-finite advance
         reverts the state and floors the reward at -1."""
-        cfg = self.cfg
-        u_next = channel.advance_rl_interval(state.u,
-                                             *self._split_action(action), cfg)
-        finite = torch.isfinite(u_next).flatten(start_dim=u_next.ndim - 7
-                                                ).all(-1)
-        u_next = torch.where(finite[..., None, None, None, None, None, None,
-                                    None], u_next, state.u)
-        ops = cfg.operators(u_next.device)
-        prof = channel.mean_velocity_profile(u_next, cfg, ops)
-        ell = channel.profile_error(prof, self.u_ref(u_next.device), ops)
-        reward = torch.where(finite, spectra.reward_from_error(ell, cfg.alpha),
-                             torch.full_like(ell, -1.0))
+        u_next, finite = guard(self.advance(state.u, action), state.u, 7)
         t_next = state.t_step + 1
-        next_state = EnvState(u=u_next, t_step=t_next)
-        return StepResult(next_state, self.observe(next_state), reward,
-                          t_next >= cfg.n_actions)
+        return StepResult(EnvState(u_next, t_next),
+                          *self.outcome(u_next, finite, t_next))
+
+    def split_x(self, split) -> SplitEnv:
+        """This env split by its x-slabs, axis 1 of (B, Kx, Ky, Kz, n, n,
+        n, 5), over `split`'s ranks (`SplitEnv`): one gather of the state a
+        step gives the observation and the reward's x-z mean profile of
+        the whole channel."""
+        return SplitEnv(self, split, self.cfg.n_elem[0], state_ndim=7)
 
 
 _REDUCED = dict(n_elem=(2, 3, 2), t_end=0.3, dt_rl=0.1)

@@ -326,12 +326,31 @@ def test_slice_traj_equals_the_reference():
 
 
 @pytest.mark.parametrize("name", ["channel_wm_reduced", "burgers_reduced"])
-def test_elem_axis_raises(name):
-    """Only the HIT envs split by their element axis: the others refuse
-    `elem_axis`, naming the ROADMAP item of their split."""
-    with pytest.raises(NotImplementedError, match="elem_axis.*A11d"):
-        Orchestrator(tenvs.make(name),
-                     FleetConfig(n_envs=2, elem_axis="model"), device="cpu")
+def test_elem_axis_splits_the_channel_and_burgers(name, monkeypatch):
+    """A channel and a Burgers env split by their element axis: the
+    Orchestrator builds each rank of a 2-rank "model" group (the group's
+    geometry stubbed: no exchange runs here) and hands it its slabs of the
+    bank rows along axis 1 (`Orchestrator.local`), with the whole env's
+    specs; without a mesh the axis has one rank, which keeps the rows."""
+    env = tenvs.make(name)
+    fleet = FleetConfig(n_envs=2, bank_size=3, elem_axis="model")
+    one = Orchestrator(env, fleet, device="cpu")
+    assert one.split.size == 1 and torch.equal(one.local(one.bank), one.bank)
+    k = one.bank.shape[1]
+    monkeypatch.setattr(collectives, "axes_size",
+                        lambda mesh, axes: 2 if axes == ("model",) else 1)
+    parts = []
+    for rank in range(2):
+        monkeypatch.setattr(collectives, "axes_group",
+                            lambda mesh, axes, r=rank: (object(), r))
+        orch = Orchestrator(env, fleet, device="cpu")
+        assert (orch.split.rank, orch.split.size) == (rank, 2)
+        assert orch.env.obs_spec == env.obs_spec
+        assert orch.env.action_spec == env.action_spec
+        assert torch.equal(orch.bank, one.bank)
+        parts.append(orch.local(orch.bank))
+        assert parts[-1].shape[1] == k // 2
+    assert torch.equal(torch.cat(parts, dim=1), one.bank)
 
 
 # --- the rollout region against the reference --------------------------------

@@ -296,10 +296,10 @@ def test_runner_trains_and_checkpoints_round_trip(tmp_path):
     assert rec_a["return_norm"] == rec_b["return_norm"]
 
 
-def _record_conv_tf32(policy, seen: list):
-    """Record cuDNN's TF32 flag as each first conv of the two trunks runs
+def _record_conv_flag(policy, seen: list, name: str = "allow_tf32"):
+    """Record cuDNN's flag `name` as each first conv of the two trunks runs
     forward and as its weight gradient is computed in backward."""
-    flag = lambda: torch.backends.cudnn.allow_tf32  # noqa: E731
+    flag = lambda: getattr(torch.backends.cudnn, name)  # noqa: E731
     for trunk in (policy.actor, policy.critic):
         trunk[0].register_forward_hook(
             lambda *_: seen.append(("forward", flag())))
@@ -319,7 +319,7 @@ def test_policy_convs_run_in_the_package_conv_precision(
                         not package_tf32)
     pol = _port_policy(setup)
     seen = []
-    _record_conv_tf32(pol, seen)
+    _record_conv_flag(pol, seen)
     env = setup["env_t"]
     u0 = np.array(setup["env_j"].initial_state_bank(jax.random.PRNGKey(2), 1))
     trollout.rollout(pol, env, torch.from_numpy(u0), deterministic=True)
@@ -336,6 +336,65 @@ def test_policy_convs_run_in_the_package_conv_precision(
     assert {kind for kind, _ in seen} == {"forward", "backward"}, seen
     assert all(v == package_tf32 for _, v in seen), seen
     assert torch.backends.cudnn.allow_tf32 is (not package_tf32)
+
+
+def test_policy_convs_run_cudnn_deterministic(setup, fixed_traj,
+                                              monkeypatch):
+    """cuDNN's deterministic algorithms are in force inside the rollout's
+    forward pass and inside both passes of `update_epoch`, whatever the
+    process-wide flag is, and the caller's flag is back after each call:
+    ranks that run the same update on the same trajectory stay bitwise
+    equal (on an H100 the 1-D policy's conv weight gradient differed
+    between the ranks of a split burgers_96dof without it)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    pol = _port_policy(setup)
+    seen = []
+    _record_conv_flag(pol, seen, "deterministic")
+    u0 = np.array(setup["env_j"].initial_state_bank(jax.random.PRNGKey(2), 1))
+    trollout.rollout(pol, setup["env_t"], torch.from_numpy(u0),
+                     deterministic=True)
+    cfg = tppo.PPOConfig()
+    traj = tppo.Trajectory(**{k: torch.from_numpy(v) for k, v in
+                              fixed_traj.items()})
+    adv, ret = tppo.gae(traj, cfg.gamma, cfg.lam)
+    tppo.update_epoch(pol, tppo.make_optimizer(pol, cfg), cfg, traj, adv, ret)
+    assert {kind for kind, _ in seen} == {"forward", "backward"}, seen
+    assert all(v for _, v in seen), seen
+    assert torch.backends.cudnn.deterministic is False
+
+
+@pytest.mark.cuda
+def test_cuda_updates_from_one_state_are_bitwise_equal():
+    """Three PPO updates (5 epochs each) of burgers_96dof's 1-D policy from
+    one state on one random trajectory (5 steps x 16 envs) on the GPU give
+    params and Adam state equal bit for bit: what every rank of a split
+    env runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    env = tenvs.make("burgers_96dof")
+    pcfg = tpolicy.PolicyConfig.from_specs(env.obs_spec, env.action_spec)
+    gen = torch.Generator().manual_seed(4)
+    t, b, e = 5, 16, env.action_spec.n_elements
+    traj = tppo.Trajectory(
+        obs=torch.randn((t, b) + env.obs_spec.shape, generator=gen),
+        actions=0.5 * torch.rand((t, b, e), generator=gen),
+        log_probs=torch.randn((t, b), generator=gen),
+        rewards=torch.rand((t, b), generator=gen) * 2 - 1,
+        dones=torch.arange(t)[:, None].expand(t, b) == t - 1,
+        values=torch.randn((t, b), generator=gen),
+        last_value=torch.randn((b,), generator=gen))
+    traj = tppo.Trajectory(*(x.cuda() for x in traj))
+    cfg = tppo.PPOConfig()
+    states = []
+    for _ in range(3):
+        pol = tpolicy.Policy(pcfg, torch.Generator().manual_seed(0)).cuda()
+        opt = tppo.make_optimizer(pol, cfg)
+        tppo.update(pol, opt, cfg, traj)
+        states.append([p.detach().cpu() for p in pol.parameters()]
+                      + [v.detach().cpu() for st in opt.state.values()
+                         for v in st.values() if torch.is_tensor(v)])
+    for other in states[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(states[0], other))
 
 
 @pytest.mark.cuda

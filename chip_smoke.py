@@ -15,9 +15,12 @@ In order, and any failure exits non-zero:
      RHS has a cluster and a two-pass source, dg_derivative3 a tiled and a
      generic one, flash attention a bf16 tensor-core and a float32
      CUDA-core one, the linear scan a chunked and a step one) and prints
-     each build's time and nvcc's register report (a spill in the RHS
-     cluster kernel, the tiled dg_derivative3 or smagorinsky_nut fails),
-     then the RHS cluster plans of
+     each build's time and nvcc's register report (read by the kernel
+     audit's parser, `repro_torch.analysis.kernel_audit`), then the
+     static-analysis gate on the card (`analysis_phase`: every layer of
+     `repro_torch.analysis` with `device="cuda"`; any unsuppressed
+     finding fails, a spill not measured and kept among them), then the RHS
+     cluster plans of
      24-DOF and 32-DOF and how many of their clusters the card holds at
      once, and the chunked scan's plan, blocks per SM and waves at hymba's
      prefills;
@@ -189,7 +192,6 @@ import functools
 import json
 import math
 import os
-import re
 import shutil
 import statistics
 import subprocess
@@ -521,20 +523,6 @@ def event_ms(calls: dict, reps: int = 5) -> dict:
         print(f"  {name}: {statistics.median(t):.7f} ms (median of "
               f"{reps}: {', '.join(f'{x:.4f}' for x in t)})")
     return {k: statistics.median(v) for k, v in times.items()}
-
-
-def ptxas_report(log: str) -> list[str]:
-    """One line per compiled kernel from nvcc's `-Xptxas -v` output: the
-    kernel's (mangled) name, then its spills and its registers."""
-    lines, name = [], None
-    for line in log.splitlines():
-        line = line.strip()
-        if "Function properties for" in line:
-            name = line.split("Function properties for", 1)[1].strip()
-        elif name and ("spill" in line or "registers" in line):
-            info = line.replace("ptxas info    : ", "")
-            lines.append(f"{name}: {info}")
-    return lines
 
 
 def time_calls(calls: dict, windows: int = 50, alone: int = 25,
@@ -2252,6 +2240,62 @@ def drive_fleet(runner, n_iter: int, counters: list) -> tuple:
     return history, [fn.launches for fn in counters], wall
 
 
+def analysis_phase(card: str) -> dict:
+    """Every layer of the port's static-analysis gate on the card
+    (`repro_torch.analysis.cli.run_layers`, `device="cuda"`): the source
+    lint; each registered entry point on the CPU under the recorder and
+    again on the card under `torch.cuda.set_sync_debug_mode`, the two sync
+    counts held equal; each library's registers, spills and static shared
+    memory from cuobjdump, each planned launch's shared memory read from
+    its library and held to its wrapper's plan and to the card's limit;
+    the reduced-HIT training run's pinned counters on the card.
+    Any unsuppressed finding fails.  Returns the phase's `analysis`
+    record."""
+    from repro_torch.analysis import cli
+
+    t0 = time.perf_counter()
+    report = cli.run_layers(cli.LAYERS, root=ROOT, device="cuda")
+    secs = time.perf_counter() - t0
+    by_layer: dict = {layer: {} for layer in cli.LAYERS}
+    layer_of = {"AST": "ast", "OPS": "ops", "KER": "kernel", "TRA": "trace"}
+    for f in report.unsuppressed():
+        counts = by_layer[layer_of[f.rule[:3]]]
+        counts[f.rule] = counts.get(f.rule, 0) + 1
+    meta = report.meta
+    record = {
+        "seconds": round(secs, 3),
+        "layer_seconds": meta["seconds"],
+        "card": card,
+        "findings": by_layer,
+        "suppressed": [f"{f.rule} {f.location}: {f.suppress_reason}"
+                       for f in report.findings if f.suppressed],
+        "libraries": {
+            source: {k: r[k] for k in ("functions", "registers", "spills",
+                                       "shared", "stack")}
+            for source, r in meta["kernel_audit"]["libraries"].items()},
+        "smem_optin_bytes": meta["kernel_audit"]["smem_limit"],
+        "max_smem_by_case": {
+            name: s["max_smem"]
+            for name, s in meta["kernel_audit"]["kernels"].items()},
+        "syncs": {name: {"cpu": v["cpu"], "card": v["card"]}
+                  for name, v in meta["op_audit"]["syncs"].items()},
+        "launches_by_entry": meta["op_audit"].get("launches", {}),
+        "trace": meta["trace_audit"]["reduced_hit_counts"],
+        "trace_sync_sites": meta["trace_audit"]["sync_sites"],
+    }
+    print(report.summary())
+    print(f"static analysis on the card in {secs:.1f} s ({card}): "
+          f"{len(report.unsuppressed())} unsuppressed finding(s); syncs "
+          f"per entry (cpu/card) "
+          + ", ".join(f"{n} {v['cpu']}/{v['card']}"
+                      for n, v in record["syncs"].items()))
+    if not report.clean:
+        raise AssertionError(f"static analysis: "
+                             f"{len(report.unsuppressed())} unsuppressed "
+                             f"finding(s)")
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -2278,6 +2322,7 @@ def main() -> int:
     from repro_torch.kernels import (_build, dg_derivative, flash_attention,
                                      linear_scan, rhs, smagorinsky,
                                      wall_model)
+    from repro_torch.analysis import kernel_audit
     from repro_torch.models import api, lm
 
     dev = torch.device("cuda", 0)
@@ -2305,10 +2350,7 @@ def main() -> int:
 
     # --- 2. build: one nvcc per source, all started together -----------------
     elapsed("phase 2: build")
-    sources = (*rhs.SOURCES.values(), *dg_derivative.SOURCES.values(),
-               smagorinsky._SOURCE,
-               wall_model._SOURCE, *flash_attention.SOURCES.values(),
-               *linear_scan.SOURCES.values())
+    sources = kernel_audit.all_sources()
 
     def build(source: str) -> float:
         t0 = time.perf_counter()
@@ -2320,49 +2362,24 @@ def main() -> int:
         build_s = dict(zip(sources, pool.map(build, sources)))
     print(f"built {len(sources)} sources in {time.perf_counter() - t0:.2f} s "
           f"wall, in parallel")
-    for source, secs in build_s.items():
+    for source, secs in build_s.items():   # resources: the analysis line
         _build.load(source)
         print(f"built {source} in {secs:.2f} s")
-        report = ptxas_report(_build.build_logs.get(source, ""))
-        if len(report) > 8:  # the tiled dg_derivative3: 42 instantiations
-            regs = [int(r) for r in re.findall(r"Used (\d+) registers",
-                                                "\n".join(report))]
-            spilled = sum(int(b) for b in re.findall(
-                r"(\d+) bytes spill", "\n".join(report)))
-            print(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
-                  f"registers, {spilled} bytes of spills")
-            continue
-        for line in report:
-            print("  ptxas:", line)
-    for source in (rhs.SOURCES["cluster"], dg_derivative.SOURCES["tiled"],
-                   smagorinsky._SOURCE):
-        spills = [line for line in ptxas_report(
-            _build.build_logs.get(source, ""))
-            if any(int(b) for b in re.findall(r"(\d+) bytes spill", line))]
-        if spills:
-            raise AssertionError(f"a kernel of {source} spills: {spills}")
-    cluster_lib = _build.load(rhs.SOURCES["cluster"])
+
+    # --- 2b. the static-analysis gate on the card ------------------------------
+    elapsed("phase 2b: static analysis")
+    analysis = analysis_phase(card)
     for label, cfg in (("24-DOF", relexi_hit.HIT24),
                        ("32-DOF", relexi_hit.HIT32)):
         k, n = cfg.n_elem, cfg.n_poly + 1
         plan = rhs.cluster_plan(k, k, k, n, torch.float32)
         elems = k**3 // plan.ctas
-        carved = cluster_lib.ns_rhs_cluster_smem_bytes(n, elems)
-        if carved != plan.smem_bytes:
-            raise AssertionError(f"{label}: the kernel carves {carved} "
-                                 f"bytes, cluster_plan reckons "
-                                 f"{plan.smem_bytes}")
         active = {str(dt).split(".")[-1]: rhs.max_active_clusters(
             k, k, k, n, dt) for dt in (torch.float32, torch.bfloat16)}
         print(f"fused RHS cluster_plan {label} ({k}^3 elements, n={n}): "
               f"{plan}, {elems} elements per CTA; B=16 is 16 clusters = "
               f"{16 * plan.ctas} CTAs; cudaOccupancyMaxActiveClusters "
               f"{active} ({card})")
-    smem = _build.load(flash_attention.SOURCES["tensor_core"]) \
-        .flash_attention_tc_smem_bytes
-    print("  flash_attention_tc_kernel dynamic shared memory per block: "
-          + ", ".join(f"D<={dp} {smem(dp)} bytes"
-                      for dp in flash_attention.TC_TILES))
     per_sm = _build.load(linear_scan.SOURCES["chunked"]) \
         .linear_scan_chunked_blocks_per_sm
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3317,6 +3334,7 @@ def main() -> int:
         "training": {**train_fa, **training_errs(errs, "flash_attention")}}
     rec["extra"]["training"] = {**train_ls,
                                 **training_errs(errs, "linear_scan")}
+    print(json.dumps({"analysis": analysis}))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

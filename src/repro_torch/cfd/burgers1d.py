@@ -34,7 +34,7 @@ import functools
 import numpy as np
 import torch
 
-from . import gll
+from . import gll, tables
 from .solver import _RK_A, _RK_B, _rounded
 
 
@@ -102,15 +102,18 @@ class BurgersConfig:
     def n_actions(self) -> int:
         return int(round(self.t_end / self.dt_rl))
 
-    def operators(self, device: torch.device | str = "cpu") -> dict:
-        """Operator tensors on `device`: D (n, n), w (n,) and the endpoint
-        inverse weights."""
+    def operators(self, device: torch.device | str = "cpu",
+                  dtype: torch.dtype = torch.float32) -> dict:
+        """Operator tensors on `device` in `dtype`: D (n, n), w (n,), made
+        once per (config, device, dtype) (`tables.table`), and the
+        endpoint inverse weights."""
         _, w = gll.gll_nodes_weights(self.n_poly)
         return {
-            "D": torch.as_tensor(gll.lagrange_derivative_matrix(self.n_poly),
-                                 dtype=torch.float32, device=device),
+            "D": tables.table(gll.lagrange_derivative_matrix, self.n_poly,
+                              device=device, dtype=dtype),
             "inv_w_end": (float(1.0 / w[0]), float(1.0 / w[-1])),
-            "w": torch.as_tensor(w, dtype=torch.float32, device=device),
+            "w": tables.table(gll.gll_weights, self.n_poly, device=device,
+                              dtype=dtype),
         }
 
 
@@ -118,10 +121,8 @@ class BurgersConfig:
 def nodal_to_uniform(u: torch.Tensor, cfg: BurgersConfig) -> torch.Tensor:
     """Interpolate the nodal field (..., K, n, 1) to the cell-centered
     uniform grid (..., K*n), the FFT-ready 1-D grid."""
-    x_gll, _ = gll.gll_nodes_weights(cfg.n_poly)
-    v = torch.as_tensor(
-        gll.lagrange_interpolation_matrix(x_gll, gll.equispaced_nodes(cfg.n)),
-        dtype=u.dtype, device=u.device)
+    v = tables.table(gll.to_uniform_matrix, cfg.n_poly, device=u.device,
+                     dtype=u.dtype)
     q = u[..., 0] @ v.T                                  # (..., K, n)
     return q.reshape(tuple(q.shape[:-2]) + (cfg.n_dof,))
 
@@ -130,12 +131,19 @@ def energy_spectrum(u_uniform: torch.Tensor) -> torch.Tensor:
     """Shell spectrum E(k) of (..., N) velocity, sum_k E(k) = 1/2 <u^2>."""
     n = u_uniform.shape[-1]
     uhat = torch.fft.rfft(u_uniform, dim=-1) / n
+    return 0.5 * torch.abs(uhat) ** 2 * tables.table(
+        _rfft_weights, n, device=u_uniform.device, dtype=u_uniform.dtype)
+
+
+def _rfft_weights(n: int) -> np.ndarray:
+    """Weights of the n // 2 + 1 rfft modes of n points in the spectrum:
+    2 for the modes that stand for a conjugate pair too, 1 for the mean
+    and, for even n, the Nyquist mode."""
     weight = np.full(n // 2 + 1, 2.0)
     weight[0] = 1.0
     if n % 2 == 0:
         weight[-1] = 1.0
-    return 0.5 * torch.abs(uhat) ** 2 * torch.as_tensor(
-        weight, dtype=u_uniform.dtype, device=u_uniform.device)
+    return weight
 
 
 def reference_spectrum(cfg: BurgersConfig) -> np.ndarray:

@@ -46,7 +46,7 @@ import torch
 from ..kernels import rhs as rhs_kernel
 from ..kernels import wall_model
 from ..kernels.wall_model import reichardt_uplus
-from . import dgsem, equations, gll
+from . import dgsem, equations, gll, tables
 from .equations import GasParams
 from .solver import _RK_A, _RK_B, _rounded, kernel_grad_nut
 
@@ -173,15 +173,18 @@ class ChannelConfig:
         """Friction-temperature scale u_tau^2 / cp of an adiabatic wall."""
         return self.u_tau**2 / equations.CP
 
-    def operators(self, device: torch.device | str = "cpu") -> dict:
-        """Operator tensors on `device`: D (n, n), w (n,) and the endpoint
-        inverse weights."""
+    def operators(self, device: torch.device | str = "cpu",
+                  dtype: torch.dtype = torch.float32) -> dict:
+        """Operator tensors on `device` in `dtype`: D (n, n), w (n,), made
+        once per (config, device, dtype) (`tables.table`), and the
+        endpoint inverse weights."""
         _, w = gll.gll_nodes_weights(self.n_poly)
         return {
-            "D": torch.as_tensor(gll.lagrange_derivative_matrix(self.n_poly),
-                                 dtype=torch.float32, device=device),
+            "D": tables.table(gll.lagrange_derivative_matrix, self.n_poly,
+                              device=device, dtype=dtype),
             "inv_w_end": (float(1.0 / w[0]), float(1.0 / w[-1])),
-            "w": torch.as_tensor(w, dtype=torch.float32, device=device),
+            "w": tables.table(gll.gll_weights, self.n_poly, device=device,
+                              dtype=dtype),
         }
 
 
@@ -476,15 +479,13 @@ def advance_rl_interval(u: torch.Tensor, scale_bot: torch.Tensor,
     nodes here.  With `cfg.precision == "bf16"` the state advances in
     bfloat16 and is cast back to float32 at the end.  With `split` u and
     the scales are this rank's x-slabs of a split channel."""
-    ops = cfg.operators(u.device)
     n = cfg.n
     dtype = cfg.compute_dtype
+    # the operator matrices follow the compute dtype, as in the reference
+    ops = cfg.operators(u.device, dtype)
     sb, st = (s[..., None, None].expand(s.shape + (n, n)).to(dtype)
               for s in (scale_bot, scale_top))
     u = u.to(dtype)
-    if dtype != torch.float32:
-        # the operator matrices follow the compute dtype, as in the reference
-        ops = dict(ops, D=ops["D"].to(dtype), w=ops["w"].to(dtype))
     for _ in range(cfg.n_substeps):
         u = rk_substep(u, sb, st, cfg, ops, split)
     return u.to(torch.float32)

@@ -67,11 +67,6 @@ class DGParams:
     def deriv_matrix(self) -> np.ndarray:
         return gll.lagrange_derivative_matrix(self.n_poly)
 
-    def interp_to_uniform(self) -> np.ndarray:
-        x_gll, _ = self.nodes_weights()
-        return gll.lagrange_interpolation_matrix(x_gll,
-                                                 gll.equispaced_nodes(self.n))
-
     def node_coords(self) -> np.ndarray:
         """Physical coordinates of every GLL node, shape (K, n) per direction."""
         x_gll, _ = self.nodes_weights()

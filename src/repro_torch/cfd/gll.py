@@ -69,6 +69,11 @@ def gll_nodes_weights(n_poly: int) -> tuple[np.ndarray, np.ndarray]:
     return x, w
 
 
+def gll_weights(n_poly: int) -> np.ndarray:
+    """The quadrature weights of `gll_nodes_weights` alone."""
+    return gll_nodes_weights(n_poly)[1]
+
+
 def _barycentric_weights(x: np.ndarray) -> np.ndarray:
     n = len(x)
     w = np.ones(n)
@@ -118,6 +123,13 @@ def equispaced_nodes(n_points: int) -> np.ndarray:
     n_points each gives a globally uniform, periodic-FFT-ready grid.
     """
     return -1.0 + (2.0 * np.arange(n_points) + 1.0) / n_points
+
+
+def to_uniform_matrix(n_poly: int) -> np.ndarray:
+    """(n, n) interpolation from the n = n_poly + 1 GLL nodes of an element
+    to its n cell-centered equispaced points."""
+    x_gll, _ = gll_nodes_weights(n_poly)
+    return lagrange_interpolation_matrix(x_gll, equispaced_nodes(n_poly + 1))
 
 
 def fourier_eval_matrix(n_modes: int, x_target: np.ndarray, length: float) -> np.ndarray:

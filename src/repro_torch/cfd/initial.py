@@ -14,10 +14,26 @@ import functools
 import numpy as np
 import torch
 
-from . import gll, spectra
+from . import gll, spectra, tables
 from .dgsem import DGParams
 from .equations import primitive_to_conservative
 from .solver import HITConfig
+
+
+def _wave_vectors(n_grid: int) -> np.ndarray:
+    """The integer wave vectors (n, n, n//2+1, 3) of an rfft grid."""
+    k1 = np.fft.fftfreq(n_grid, d=1.0 / n_grid)
+    kr = np.fft.rfftfreq(n_grid, d=1.0 / n_grid)
+    return np.stack(np.meshgrid(k1, k1, kr, indexing="ij"), axis=-1)
+
+
+def _off_nyquist(n_grid: int) -> np.ndarray:
+    """(n, n, n//2+1, 1): true on the modes off the rfft grid's Nyquist
+    planes.  Those planes are zeroed: the Helmholtz projector is
+    sign-ambiguous there and irfftn's Hermitian symmetrization would
+    reintroduce divergence."""
+    return np.all(np.abs(_wave_vectors(n_grid)) < n_grid // 2, axis=-1,
+                  keepdims=True)
 
 
 def _solenoidal_spectral_field(noise: torch.Tensor, n_grid: int,
@@ -29,19 +45,11 @@ def _solenoidal_spectral_field(noise: torch.Tensor, n_grid: int,
     dev = noise.device
     vhat = torch.fft.rfftn(noise, dim=(-4, -3, -2))
 
-    k1 = np.fft.fftfreq(n_grid, d=1.0 / n_grid)
-    kr = np.fft.rfftfreq(n_grid, d=1.0 / n_grid)
-    kx, ky, kz = np.meshgrid(k1, k1, kr, indexing="ij")
-    k_vec = torch.as_tensor(np.stack([kx, ky, kz], axis=-1),
-                            dtype=torch.float32, device=dev)
+    k_vec = tables.table(_wave_vectors, n_grid, device=dev)
     k_sq = torch.sum(k_vec**2, dim=-1, keepdim=True)
     k_sq = torch.where(k_sq == 0, torch.ones_like(k_sq), k_sq)
-    # Zero the Nyquist planes: the Helmholtz projector is sign-ambiguous there
-    # and irfftn's Hermitian symmetrization would reintroduce divergence.
-    nyq = n_grid // 2
-    mask = (np.abs(kx) < nyq) & (np.abs(ky) < nyq) & (kz < nyq)
-    vhat = vhat * torch.as_tensor(mask[..., None], dtype=vhat.dtype,
-                                  device=dev)
+    vhat = vhat * tables.table(_off_nyquist, n_grid, device=dev,
+                               dtype=vhat.dtype)
     # Helmholtz projection: remove the compressive component.
     proj = vhat - k_vec * torch.sum(k_vec * vhat, dim=-1, keepdim=True) / k_sq
     w = torch.as_tensor(weight, dtype=torch.float32, device=dev)

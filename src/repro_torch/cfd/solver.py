@@ -15,7 +15,7 @@ import torch
 
 from ..kernels import dg_derivative, smagorinsky
 from ..kernels import rhs as rhs_kernel
-from . import dgsem, equations
+from . import dgsem, equations, gll, tables
 from .dgsem import DGParams
 from .equations import GasParams
 
@@ -123,15 +123,18 @@ class HITConfig:
     def n_actions(self) -> int:
         return int(round(self.t_end / self.dt_rl))
 
-    def operators(self, device: torch.device | str = "cpu") -> dict:
-        """Operator tensors on `device`: D (n, n), w (n,) and the endpoint
-        inverse weights."""
+    def operators(self, device: torch.device | str = "cpu",
+                  dtype: torch.dtype = torch.float32) -> dict:
+        """Operator tensors on `device` in `dtype`: D (n, n), w (n,), made
+        once per (config, device, dtype) (`tables.table`), and the
+        endpoint inverse weights."""
         _, w = self.dg.nodes_weights()
         return {
-            "D": torch.as_tensor(self.dg.deriv_matrix(), dtype=torch.float32,
-                                 device=device),
+            "D": tables.table(gll.lagrange_derivative_matrix, self.n_poly,
+                              device=device, dtype=dtype),
             "inv_w_end": (float(1.0 / w[0]), float(1.0 / w[-1])),
-            "w": torch.as_tensor(w, dtype=torch.float32, device=device),
+            "w": tables.table(gll.gll_weights, self.n_poly, device=device,
+                              dtype=dtype),
         }
 
 
@@ -232,14 +235,12 @@ def advance_rl_interval(u: torch.Tensor, cs_elem: torch.Tensor,
     transition).  With `cfg.precision == "bf16"` the state is advanced in
     bfloat16 and cast back to float32 at the end.  With `split` u and
     cs_elem are this rank's x-slabs of a split mesh."""
-    ops = cfg.operators(u.device)
     dtype = cfg.compute_dtype
+    # the operator matrices follow the compute dtype, as in the reference
+    ops = cfg.operators(u.device, dtype)
     # contiguous: the fused kernel reads one C_s per node
     cs_nodes = broadcast_cs(cs_elem, cfg).to(dtype).contiguous()
     u = u.to(dtype)
-    if dtype != torch.float32:
-        # the operator matrices follow the compute dtype, as in the reference
-        ops = dict(ops, D=ops["D"].to(dtype), w=ops["w"].to(dtype))
     for _ in range(cfg.n_substeps):
         u = rk_substep(u, cs_nodes, cfg, ops, split)
     return u.to(torch.float32)

@@ -8,6 +8,7 @@ import functools
 import numpy as np
 import torch
 
+from . import gll, tables
 from .dgsem import DGParams
 from .equations import conservative_to_primitive
 from .solver import HITConfig
@@ -16,7 +17,8 @@ from .solver import HITConfig
 def nodal_to_uniform(q: torch.Tensor, dg: DGParams) -> torch.Tensor:
     """Interpolate nodal DG field (..., K,K,K, n,n,n, C) to the globally
     uniform (cell-centered) grid (..., K*n, K*n, K*n, C)."""
-    v = torch.as_tensor(dg.interp_to_uniform(), dtype=q.dtype, device=q.device)
+    v = tables.table(gll.to_uniform_matrix, dg.n_poly, device=q.device,
+                     dtype=q.dtype)
     for axis_offset in range(3):
         axis = q.ndim - 4 + axis_offset
         q = torch.movedim(torch.movedim(q, axis, -1) @ v.T, -1, axis)
@@ -43,6 +45,11 @@ def _shell_bins(n_grid: int) -> tuple[np.ndarray, int, np.ndarray]:
     return shells, n_shells, weight
 
 
+def _shell_weight(n_grid: int) -> np.ndarray:
+    """The rfft half-spectrum weights of `_shell_bins`."""
+    return _shell_bins(n_grid)[2]
+
+
 @functools.lru_cache(maxsize=32)
 def _shell_matrix(n_grid: int) -> np.ndarray:
     """(n_grid^2 * (n_grid//2+1), n_shells) one-hot shell membership."""
@@ -55,8 +62,8 @@ def shell_sum(density: torch.Tensor, n_grid: int) -> torch.Tensor:
 
     A one-hot matmul, not `index_add_`: CUDA atomics would change the order
     of the sum from run to run."""
-    onehot = torch.as_tensor(_shell_matrix(n_grid), dtype=density.dtype,
-                             device=density.device)
+    onehot = tables.table(_shell_matrix, n_grid, device=density.device,
+                          dtype=density.dtype)
     flat = density.reshape(density.shape[:-3] + (-1,))
     return flat @ onehot
 
@@ -65,10 +72,9 @@ def energy_spectrum(vel_uniform: torch.Tensor) -> torch.Tensor:
     """Shell-averaged kinetic-energy spectrum E(k) of (..., N,N,N,3) velocity,
     normalized such that sum_k E(k) = 0.5 <|v|^2> (TKE)."""
     n = vel_uniform.shape[-2]
-    _, _, weight = _shell_bins(n)
     vhat = torch.fft.rfftn(vel_uniform, dim=(-4, -3, -2)) / (n**3)
-    w = torch.as_tensor(weight, dtype=vel_uniform.dtype,
-                        device=vel_uniform.device)
+    w = tables.table(_shell_weight, n, device=vel_uniform.device,
+                     dtype=vel_uniform.dtype)
     e_density = 0.5 * torch.sum(torch.abs(vhat) ** 2, dim=-1) * w
     return shell_sum(e_density, n)
 

@@ -133,6 +133,11 @@ def _host_copy(tree: dict) -> dict:
             else v.detach().to("cpu", copy=True) for k, v in tree.items()}
 
 
+def _device_copy(tree: dict) -> dict:
+    return {k: _device_copy(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in tree.items()}
+
+
 def _copy_into(dst: dict, src: dict) -> None:
     with torch.no_grad():
         for k, v in dst.items():
@@ -189,7 +194,9 @@ class Runner(RunnerBase):
         if self.failure_injector is not None:
             self.failure_injector(k)  # may raise — exercised by tests
         t0 = time.perf_counter()
-        backup = _host_copy(self._state_tree())
+        # a copy on the device: no host sync (`_host_copy` would make one
+        # blocking device-to-host copy per state tensor every iteration)
+        backup = _device_copy(self._state_tree())
         try:
             stats = ppo_lib.update(self.policy, self.opt, self.ppo_cfg, traj)
         except BaseException:

@@ -19,7 +19,7 @@ import dataclasses
 
 import torch
 
-from ..cfd import burgers1d, spectra
+from ..cfd import burgers1d, spectra, tables
 from ..cfd.burgers1d import BurgersConfig
 from .base import (ActionSpec, ChannelSpec, EnvState, ObsSpec, SplitEnv,
                    StepResult, guard)
@@ -48,8 +48,8 @@ class BurgersEnv:
 
     def e_ref(self, device: torch.device | str = "cpu") -> torch.Tensor:
         """Synthetic k^-2 target spectrum (config-time constant)."""
-        return torch.as_tensor(burgers1d.reference_spectrum(self.cfg),
-                               dtype=torch.float32, device=device)
+        return tables.table(burgers1d.reference_spectrum, self.cfg,
+                            device=device)
 
     def initial_state_bank(self, gen: torch.Generator, n: int) -> torch.Tensor:
         return burgers1d.make_state_bank(gen, self.cfg, n)

@@ -30,7 +30,7 @@ import dataclasses
 
 import torch
 
-from ..cfd import channel, spectra
+from ..cfd import channel, spectra, tables
 from ..cfd.channel import ChannelConfig
 from .base import (ActionSpec, ChannelSpec, EnvState, ObsSpec, SplitEnv,
                    StepResult, guard, velocity_channels)
@@ -70,8 +70,8 @@ class ChannelEnv:
 
     def u_ref(self, device: torch.device | str = "cpu") -> torch.Tensor:
         """Reference mean profile (config-time constant)."""
-        return torch.as_tensor(channel.reference_profile(self.cfg),
-                               device=device)
+        return tables.table(channel.reference_profile, self.cfg,
+                            device=device)
 
     def initial_state_bank(self, gen: torch.Generator, n: int) -> torch.Tensor:
         return channel.make_state_bank(gen, self.cfg, n)

@@ -16,7 +16,7 @@ import dataclasses
 import torch
 
 from ..cfd import env as hit_kernel
-from ..cfd import initial, spectra
+from ..cfd import initial, spectra, tables
 from ..cfd.solver import HITConfig
 from ..configs import relexi_hit
 from .base import (ActionSpec, EnvState, ObsSpec, SplitEnv, StepResult,
@@ -47,8 +47,8 @@ class HITLESEnv:
 
     def e_dns(self, device: torch.device | str = "cpu") -> torch.Tensor:
         """Synthetic DNS target spectrum (config-time constant)."""
-        return torch.as_tensor(spectra.reference_spectrum(self.cfg),
-                               dtype=torch.float32, device=device)
+        return tables.table(spectra.reference_spectrum, self.cfg,
+                            device=device)
 
     def initial_state_bank(self, gen: torch.Generator, n: int) -> torch.Tensor:
         return initial.make_state_bank(gen, self.cfg, n)

@@ -19,6 +19,11 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
+# shared memory one Hopper block can opt in to (227 KB), the one figure that
+# the wrappers' launch plans and csrc/ns_rhs_cluster.cu's `kMaxSmemBytes`
+# share; the kernel audit holds it to the card's
+# `shared_memory_per_block_optin`
+SMEM_OPTIN_BYTES = 232_448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -86,14 +86,24 @@ __global__ void dg_derivative3_kernel(const T* __restrict__ u,
   }
 }
 
+// Elements a block holds: a thread a value, at least one element.
+int block_elems(int per_elem) {
+  const int elems = kThreads / per_elem;
+  return elems < 1 ? 1 : elems;
+}
+
+// Dynamic shared memory of a block: D and its elements, in float32.
+size_t block_smem_bytes(int n, int per_elem) {
+  return sizeof(float) *
+         ((size_t)n * n + (size_t)block_elems(per_elem) * per_elem);
+}
+
 template <typename T>
 int launch(const void* u, const float* dmat, void* du0, void* du1, void* du2,
            long long batch, int n, int c, cudaStream_t stream) {
   const int per_elem = n * n * n * c;
-  int elems_per_block = kThreads / per_elem;
-  if (elems_per_block < 1) elems_per_block = 1;
-  const size_t smem =
-      sizeof(float) * ((size_t)n * n + (size_t)elems_per_block * per_elem);
+  const int elems_per_block = block_elems(per_elem);
+  const size_t smem = block_smem_bytes(n, per_elem);
   if (smem > kSmemDefault) {
     cudaError_t err = cudaFuncSetAttribute(
         dg_derivative3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -125,6 +135,13 @@ int dg_derivative3_launch(const void* u, const void* dmat, void* du0,
   if (is_bf16)
     return launch<__nv_bfloat16>(u, d, du0, du1, du2, batch, n, c, s);
   return launch<float>(u, d, du0, du1, du2, batch, n, c, s);
+}
+
+// Dynamic shared memory (bytes) of a launch for n^3 nodes and c channels;
+// -1 for n or c below 1.
+int dg_derivative3_smem_bytes(int n, int c) {
+  if (n < 1 || c < 1) return -1;
+  return static_cast<int>(block_smem_bytes(n, n * n * n * c));
 }
 
 const char* dg_derivative3_error_string(int code) {

@@ -221,6 +221,17 @@ size_t smem_bytes(int stages, size_t tile_bytes, int n) {
   return stages * ((tile_bytes + 15) / 16 * 16) + sizeof(float) * n * n;
 }
 
+// Elements of a tile of n^3-node elements of `elem_bytes` bytes, computed
+// by `groups` channel pieces a node: kTargetThreads threads' worth, fewer
+// while two buffers pass the default 48 KB.
+int tile_elems(int n, int groups, size_t elem_bytes) {
+  int elems = kTargetThreads / (n * n * n * groups);
+  if (elems < 1) elems = 1;
+  while (elems > 1 && smem_bytes(2, elems * elem_bytes, n) > kSmemDefault)
+    --elems;
+  return elems;
+}
+
 template <typename T, int N, int V>
 int launch(const void* u, const void* dmat, int d_is_bf16, void* du0,
            void* du1, void* du2, long long batch, int c, cudaStream_t stream) {
@@ -228,10 +239,7 @@ int launch(const void* u, const void* dmat, int d_is_bf16, void* du0,
   auto kernel = dg_derivative3_tiled_kernel<T, N, V>;
   const int groups = c / V;
   const size_t elem_bytes = sizeof(T) * (size_t)N3 * c;
-  int elems = kTargetThreads / (N3 * groups);
-  if (elems < 1) elems = 1;
-  while (elems > 1 && smem_bytes(2, elems * elem_bytes, N) > kSmemDefault)
-    --elems;
+  const int elems = tile_elems(N, groups, elem_bytes);
   int x = elems * N3;
   if (x * groups > kMaxThreads) {
     x = kMaxThreads / groups;
@@ -312,6 +320,17 @@ int dg_derivative3_tiled_launch(const void* u, const void* dmat, void* du0,
     return launch_n<__nv_bfloat16>(u, dmat, d_is_bf16, du0, du1, du2, batch,
                                    n, c, s);
   return launch_n<float>(u, dmat, d_is_bf16, du0, du1, du2, batch, n, c, s);
+}
+
+// Dynamic shared memory (bytes) of a launch for n^3 nodes and c channels
+// with two buffers, the most `launch` asks for; -1 outside the instance's
+// range.
+int dg_derivative3_tiled_smem_bytes(int n, int c, int is_bf16) {
+  if (n < 2 || n > 8 || c < 1 || c > kMaxC) return -1;
+  const int v = c % 4 == 0 ? 4 : (c % 2 == 0 ? 2 : 1);  // as launch_v
+  const size_t elem_bytes = (is_bf16 ? 2 : 4) * (size_t)n * n * n * c;
+  return static_cast<int>(
+      smem_bytes(2, tile_elems(n, c / v, elem_bytes) * elem_bytes, n));
 }
 
 const char* dg_derivative3_tiled_error_string(int code) {

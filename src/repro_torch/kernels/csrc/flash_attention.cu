@@ -262,6 +262,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   return static_cast<int>(dispatch<float>(p, batch, s));
 }
 
+// Dynamic shared memory of the instance that takes head dim d, in bytes
+// (ptxas reports only static shared memory); -1 outside 1..256.
+int flash_attention_smem_bytes(int d) {
+  if (d < 1 || d > 256) return -1;
+  if (d <= 64) return smem_floats<64>() * (int)sizeof(float);
+  if (d <= 128) return smem_floats<128>() * (int)sizeof(float);
+  return smem_floats<256>() * (int)sizeof(float);
+}
+
 const char* flash_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

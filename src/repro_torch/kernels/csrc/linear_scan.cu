@@ -204,6 +204,30 @@ int log2_of(int x) {  // x is a power of two
   return n;
 }
 
+// The layout of p.t steps of (p.dk, p.dv): lanes a column, columns a
+// block, and the largest chunk whose staged values fit the per-thread
+// prefetch, no longer than the steps need.
+void plan(Params* p) {
+  p->groups = ceil_pow2((p->dk + kRows - 1) / kRows);  // <= 32
+  p->dkp = p->groups * kRows;
+  const int c = ceil_pow2(p->dv);
+  p->cols = c < 32 / p->groups ? c : 32 / p->groups;
+  int chunk = kMaxChunk;
+  while (chunk > 1 && chunk * (3 * p->dkp + p->cols) > kPrefetch * kThreads)
+    chunk >>= 1;
+  while (chunk > 1 && chunk / 2 >= p->t) chunk >>= 1;
+  p->chunk = chunk;
+  p->dkp_log2 = log2_of(p->dkp);
+  p->cols_log2 = log2_of(p->cols);
+  p->qkw_log2 = log2_of(chunk * p->dkp);
+}
+
+// Dynamic shared memory of a planned launch: at most 2 x 8 x 256 floats
+// (16 KB), so no opt-in above 48 KB is needed.
+int smem_bytes(const Params& p) {
+  return p.chunk * (3 * p.dkp + 2 * p.cols) * (int)sizeof(float);
+}
+
 }  // namespace
 
 extern "C" {
@@ -219,20 +243,8 @@ int linear_scan_launch(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q,      k,      v,      w,      u, s0, o, s_fin, t, dk, dv,
            q_bf16, k_bf16, v_bf16, w_bf16, 0, 0,  0, 0,     0, 0,  0};
-  p.groups = ceil_pow2((dk + kRows - 1) / kRows);  // <= 32
-  p.dkp = p.groups * kRows;
-  p.cols = ceil_pow2(dv) < 32 / p.groups ? ceil_pow2(dv) : 32 / p.groups;
-  // the largest chunk whose staged values fit the per-thread prefetch
-  int chunk = kMaxChunk;
-  while (chunk > 1 && chunk * (3 * p.dkp + p.cols) > kPrefetch * kThreads)
-    chunk >>= 1;
-  while (chunk > 1 && chunk / 2 >= t) chunk >>= 1;
-  p.chunk = chunk;
-  p.dkp_log2 = log2_of(p.dkp);
-  p.cols_log2 = log2_of(p.cols);
-  p.qkw_log2 = log2_of(chunk * p.dkp);
-  // at most 2 x 8 x 256 floats (16 KB): no opt-in above 48 KB is needed
-  const int bytes = chunk * (3 * p.dkp + 2 * p.cols) * (int)sizeof(float);
+  plan(&p);
+  const int bytes = smem_bytes(p);
   const bool one_lane = p.groups == 1;
   void (*kernel)(Params) =
       decay_before_read
@@ -244,6 +256,18 @@ int linear_scan_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   kernel<<<grid, kThreads, bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory (bytes) of a launch of t steps of (dk, dv); -1
+// where the launch would refuse them.
+int linear_scan_smem_bytes(int t, int dk, int dv) {
+  if (t < 1 || dk < 1 || dv < 1 || dk > 512 || dv > 65535) return -1;
+  Params p{};
+  p.t = t;
+  p.dk = dk;
+  p.dv = dv;
+  plan(&p);
+  return smem_bytes(p);
 }
 
 const char* linear_scan_error_string(int code) {

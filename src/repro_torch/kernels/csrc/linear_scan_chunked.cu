@@ -566,6 +566,22 @@ int linear_scan_chunked_blocks_per_sm(int dk, int dv, int q_bf16,
   return err == cudaSuccess ? blocks : -1;
 }
 
+// Dynamic shared memory (bytes) of the larger of the two tiled launches
+// (phase A, phase C) for (dk, dv) and the operands' dtypes, 16-byte copies
+// assumed; -1 outside the instance's range.
+int linear_scan_chunked_smem_bytes(int dk, int dv, int q_bf16, int k_bf16,
+                                   int v_bf16, int w_bf16) {
+  Plan pl;
+  if (!make_plan(dk, dv, &pl)) return -1;
+  // a 16-byte aligned stand-in pointer, never dereferenced
+  const void* any = reinterpret_cast<const void*>(256);
+  const Params p = make_params(any, any, any, any, nullptr, nullptr, nullptr,
+                               nullptr, nullptr, nullptr, pl.chunk, dk, dv,
+                               q_bf16, k_bf16, v_bf16, w_bf16, pl);
+  const int a = tiles_bytes(p, false), c = tiles_bytes(p, true);
+  return a > c ? a : c;
+}
+
 const char* linear_scan_chunked_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

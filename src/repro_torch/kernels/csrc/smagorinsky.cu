@@ -151,6 +151,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Dynamic shared memory of a staged block: its slab of kThreads points of
+// s_p values, rounded up to 16 bytes.
+size_t slab_bytes(long long s_p, size_t value_bytes) {
+  return (kThreads * s_p * value_bytes + 15) / 16 * 16;
+}
+
 template <typename T>
 int launch(const void* grad_v, long long s_p, const void* cs, long long s_c,
            void* nu_t, long long p, float delta, cudaStream_t stream) {
@@ -160,8 +166,7 @@ int launch(const void* grad_v, long long s_p, const void* cs, long long s_c,
                       (reinterpret_cast<uintptr_t>(grad_v) & 15) == 0;
   auto kernel = staged ? smagorinsky_kernel<T, true>
                        : smagorinsky_kernel<T, false>;
-  const size_t smem = staged ? (kThreads * s_p * sizeof(T) + 15) / 16 * 16
-                             : 0;
+  const size_t smem = staged ? slab_bytes(s_p, sizeof(T)) : 0;
   const long long blocks = (p + kThreads - 1) / kThreads;
   kernel<<<dim3((unsigned)blocks), dim3(kThreads), smem, stream>>>(
       static_cast<const T*>(grad_v), s_p, static_cast<const T*>(cs), s_c,
@@ -185,6 +190,14 @@ int smagorinsky_launch(const void* grad_v, long long s_p, const void* cs,
   if (is_bf16)
     return launch<__nv_bfloat16>(grad_v, s_p, cs, s_c, nu_t, p, delta, s);
   return launch<float>(grad_v, s_p, cs, s_c, nu_t, p, delta, s);
+}
+
+// Dynamic shared memory (bytes) of a staged launch for point stride s_p,
+// the most a launch asks for (one value by value asks for none); -1 where
+// s_p is below 9 or too long to be staged.
+int smagorinsky_smem_bytes(int s_p, int is_bf16) {
+  if (s_p < 9 || s_p > kMaxStagedStride) return -1;
+  return static_cast<int>(slab_bytes(s_p, is_bf16 ? 2 : 4));
 }
 
 const char* smagorinsky_error_string(int code) {

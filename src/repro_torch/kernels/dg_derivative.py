@@ -37,19 +37,47 @@ _ARGTYPES = {
                    ctypes.c_void_p)),
 }
 # shared memory one block can use on Hopper (227 KB)
-SMEM_BYTES = 232448
+SMEM_BYTES = _build.SMEM_OPTIN_BYTES
 # the tiled instance's range, as csrc/dg_derivative_tiled.cu has it
 TILED_N = range(2, 9)
 TILED_MAX_C = 64
 
 
+def tiled_smem_bytes(n: int, c: int, itemsize: int) -> int:
+    """Dynamic shared memory of the tiled instance's launch for n^3 nodes
+    and C channels of `itemsize` bytes with two buffers, the most it asks
+    for (`dg_derivative3_tiled_smem_bytes` in its source, which the kernel
+    audit holds this to on the card): elements a tile from 128 target
+    threads over C / V channel pieces a node, fewer while two buffers pass
+    48 KB; two buffers of the tile, each rounded up to 16 bytes, and D in
+    float32."""
+    v = 4 if c % 4 == 0 else 2 if c % 2 == 0 else 1
+    elem_bytes = itemsize * n**3 * c
+    elems = max(1, 128 // (n**3 * max(1, c // v)))
+
+    def two_buffers(e: int) -> int:
+        return 2 * (-(-(e * elem_bytes) // 16) * 16) + 4 * n * n
+
+    while elems > 1 and two_buffers(elems) > 48 * 1024:
+        elems -= 1
+    return two_buffers(elems)
+
+
+def generic_smem_bytes(n: int, c: int) -> int:
+    """Dynamic shared memory of the generic instance's launch: D and the
+    elements of a block of 256 threads (at least one) in float32
+    (`dg_derivative3_smem_bytes` in its source)."""
+    per_elem = n**3 * c
+    elems = max(1, 256 // per_elem) if per_elem else 1
+    return 4 * (n * n + elems * per_elem)
+
+
 def pick_instance(n: int, c: int, dtype: torch.dtype) -> str:
-    """"tiled" for 2 <= n <= 8 and C <= 64 where two element buffers of u's
-    dtype and D in float32 fit one block's shared memory (every shape the
-    paths run: the channel's n = 4, HIT's n = 6, 32-DOF's n = 8); "generic"
-    otherwise."""
-    fits = 2 * n**3 * c * dtype.itemsize + 4 * n * n <= SMEM_BYTES
-    return ("tiled" if n in TILED_N and c <= TILED_MAX_C and fits
+    """"tiled" for 2 <= n <= 8 and C <= 64 where its launch fits one
+    block's shared memory (every shape the paths run: the channel's n = 4,
+    HIT's n = 6, 32-DOF's n = 8); "generic" otherwise."""
+    return ("tiled" if n in TILED_N and c <= TILED_MAX_C
+            and tiled_smem_bytes(n, c, dtype.itemsize) <= SMEM_BYTES
             else "generic")
 
 
@@ -73,7 +101,7 @@ def _check_inputs(u: torch.Tensor, d_matrix: torch.Tensor) -> None:
     if tuple(d_matrix.shape) != (n, n):
         raise ValueError(f"d_matrix must be ({n}, {n}), got "
                          f"{tuple(d_matrix.shape)}")
-    if 4 * (n * n + n**3 * c) > SMEM_BYTES:
+    if generic_smem_bytes(n, c) > SMEM_BYTES:
         raise ValueError(f"an element of n={n}, C={c} does not fit in the "
                          f"{SMEM_BYTES} bytes of shared memory of a block")
     if d_matrix.device != u.device:

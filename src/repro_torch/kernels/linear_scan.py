@@ -60,12 +60,26 @@ CHUNKED_MAX_CHUNK = 64
 CHUNKED_SMEM_BUDGET = 48 * 1024
 
 
+def _tiles_bytes(chunk: int, dkp: int, cols: int) -> int:
+    """The most a chunk's tiles take whatever the dtypes (what `tiles_bytes`
+    in csrc/linear_scan_chunked.cu carves for bf16 q, k, w and float32 v):
+    q, k, w as float32 and as raw bf16 (chunk x dkp each, 6 bytes a value)
+    and v as float32 (chunk x cols)."""
+    return chunk * (18 * dkp + 4 * cols)
+
+
 class ChunkPlan(NamedTuple):
     """Lanes per column (G), columns per block, steps per chunk."""
 
     groups: int
     cols: int
     chunk: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of the plan's tiled launches, at most."""
+        return _tiles_bytes(self.chunk, self.groups * CHUNKED_ROWS,
+                            self.cols)
 
 
 def _ceil_pow2(x: int) -> int:
@@ -76,8 +90,7 @@ def chunked_plan(dk: int, dv: int) -> ChunkPlan:
     """The chunked instance's layout for (dk, dv), as its `make_plan`: G =
     dk/16 lanes per column (a power of two), G x cols threads (a warp to
     256), and the largest chunk <= 64 whose tiles fit 48 KB whatever the
-    dtypes: q, k, w as float32 and as raw bf16 (chunk x 16 G each, 6 bytes
-    a value) and v as float32 (chunk x cols)."""
+    dtypes (`_tiles_bytes`)."""
     if not 1 <= dk <= CHUNKED_MAX_DK:
         raise ValueError(f"the chunked scan takes dk <= {CHUNKED_MAX_DK}, "
                          f"got {dk}")
@@ -86,7 +99,7 @@ def chunked_plan(dk: int, dv: int) -> ChunkPlan:
     cols = min(max(_ceil_pow2(dv), 32 // groups),
                CHUNKED_MAX_THREADS // groups)
     chunk = CHUNKED_MAX_CHUNK
-    while chunk > 1 and chunk * (18 * dkp + 4 * cols) > CHUNKED_SMEM_BUDGET:
+    while chunk > 1 and _tiles_bytes(chunk, dkp, cols) > CHUNKED_SMEM_BUDGET:
         chunk //= 2
     return ChunkPlan(groups, cols, chunk)
 

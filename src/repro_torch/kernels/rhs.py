@@ -35,7 +35,7 @@ N_MAX = 8  # the kernels hold at most 8^3 nodes of an element in one block
 _SCRATCH = 13  # gradient entries + nu_t per node in the two-pass scratch
 MAX_CTAS = 16  # CTAs of a cluster (a non-portable size above 8)
 MAX_THREADS = 256  # threads of a cluster-kernel CTA
-MAX_SMEM_BYTES = 232_448  # dynamic shared memory of one Hopper block
+MAX_SMEM_BYTES = _build.SMEM_OPTIN_BYTES  # dynamic shared memory of a block
 # 4-byte values the cluster kernel keeps in shared memory per node
 # (primitives 7, viscous fluxes 12, RHS 5), per face node (lift jumps 10
 # per direction) and per element (its index and its 9 neighbour entries),

@@ -70,6 +70,10 @@ In order, and any failure exits non-zero:
      and 6 x that on the gradient's velocity rows (the path's call), on a
      contiguous copy and as a copy plus the kernel (PR 16's call); the
      card's floor per launch (a one-element PyTorch elementwise kernel);
+     flash attention at gemma2-27b's local layer (D 128, softcap 50) and
+     h2o-danube-1.8b's (D 80), 2 x 5,000 tokens, window 4,096, and the
+     scan's RWKV read at rwkv6-1.6b's prefill (both instances) and decode
+     step, each against its plain version first;
      and the device kernels of a bf16 dg_derivative3 call with a bf16 D
      and of smagorinsky_nut as the channel calls it (each its kernel
      alone: no cast, no copy); at hymba's training shape, flash attention's
@@ -165,12 +169,32 @@ In order, and any failure exits non-zero:
      norm at 2 x 4,096 tokens on the kernel path against the plain path,
      and two controls (the kernel path with the attention's window dropped,
      and with the scan's decay read in bf16) that the same gate must
-     reject; then training through `repro_torch.launch.train` (float32
+     reject; then, at 16 of its 32 layers (cut in process to pay for the
+     LM families below), training through `repro_torch.launch.train` (float32
      masters, bf16 compute, 2 x 4,096 tokens, Adam): 3 steps and a
      checkpoint, then `--resume` of one more, finite loss and gradient
-     norm, flash attention and the chunked scan launched 2 x 32 times a
+     norm, flash attention and the chunked scan launched 2 x 16 times a
      step (forward and remat recompute), peak device memory, and disk
-     enough for two checkpoints checked first; then
+     enough for two checkpoints checked first;
+     the LM families (`lm_families_phase`): rwkv6-1.6b, h2o-danube-1.8b,
+     starcoder2-7b, llava-next-mistral-7b (all layers), gemma2-27b (8 of
+     46), command-r-35b (4 of 40), deepseek-moe-16b and moonshot-v1-16b-a3b
+     (the dense layer + 3 MoE layers), each at full width with bf16
+     weights from a seed: `lm.greedy_generate` of 16 new tokens for 2
+     prompts of 2,048 Zipf tokens (gemma2 and danube 5,000, so that the
+     4,096-token window wraps; llava 576 patch embeddings + 1,472 text
+     tokens), launching flash attention once per layer on its tensor-core
+     instance (rwkv6: the scan 24 times on its chunked instance, then 24
+     a decode step on its step instance) and nothing else, with prefill
+     ms, decode ms a step, tokens/s and peak memory; each arch's float32
+     kernel path against its plain path (batch 1, 2 layers; gemma2 4; the
+     MoE archs the dense layer + 1), the logits of the prefill and 4
+     decode steps within TOL; one rwkv6-1.6b training step at full width
+     and depth (2 x 1,024 tokens, `api.train_step`) in bf16, 48 chunked
+     scan launches, each scan call within TOL of the kernel's plain
+     version on its inputs, then in float32 the loss and gradient norm
+     within the training pins of the plain path's, with two controls the
+     pins must reject; then
      profiles one RL step of each CFD path (the channel's launches per
      RHS), one HIT PPO epoch, one hymba prefill and one decode step
      (torch.profiler) to show where the time goes;
@@ -1877,7 +1901,8 @@ def lm_path_parity(cfg, card: str) -> dict:
         t0 = time.perf_counter()
         loss, _, grads = loss_and_grads(cfg_i, tokens)
         norm = float(optim.global_norm(grads))
-        print(f"hymba-1.5b one step's loss and gradient at {batch} x {seq} "
+        print(f"hymba-1.5b ({cfg.n_layers} layers) one step's loss and "
+              f"gradient at {batch} x {seq} "
               f"tokens, {label}: loss {loss:.6f}, grad_norm {norm:.6f}, "
               f"{(time.perf_counter() - t0) * 1e3:.3f} ms, peak device "
               f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
@@ -1905,7 +1930,8 @@ def lm_path_parity(cfg, card: str) -> dict:
     for a, b in zip(g0, g1):
         sq += torch.sum(torch.square((a.to(b.device) * c0 + b * c1) / total))
     got["plain path"] = (loss, float(torch.sqrt(sq)))
-    print(f"hymba-1.5b one step's loss and gradient at {batch} x {seq} "
+    print(f"hymba-1.5b ({cfg.n_layers} layers) one step's loss and "
+          f"gradient at {batch} x {seq} "
           f"tokens, plain path (one sequence at a time): loss {loss:.6f}, "
           f"grad_norm {got['plain path'][1]:.6f}, "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms, peak device memory "
@@ -1954,13 +1980,24 @@ def lm_path_parity(cfg, card: str) -> dict:
     return {"readings": got, "relative": rel, "n_params": n_params}
 
 
+# hymba-1.5b training's depth through the launcher: 16 of its 32 layers
+# (2 groups of 8), cut in process to pay for the LM families' phase (two
+# 8.6 GB checkpoints in place of two 17.2 GB ones).  The kernel-vs-plain
+# step (`lm_path_parity`) stays at full depth: at 16 layers its control
+# "scan decay read in bf16" read 1.67e-4 / 6.3e-4, inside the pins it must
+# fail (at 32: 1.33e-4 / 2.25e-2).
+HYMBA_TRAIN_LAYERS = 16
+
+
 def lm_train_phase(counters: list, card: str) -> dict:
-    """hymba-1.5b at full width and depth: first one step's loss and
+    """hymba-1.5b at full width: first, at full depth, one step's loss and
     gradient norm on the kernel path against the plain path
-    (`lm_path_parity`), then training through `repro_torch.launch.train`
-    (device None: the GPU): float32 masters, bf16 compute, batch 2 x 4,096
-    tokens, Adam (lr 3e-4, clip 1.0); 3 steps and a checkpoint, then
-    `--resume` of one more step.  Each run with every count set to 0 just
+    (`lm_path_parity`); then, `HYMBA_TRAIN_LAYERS` deep (the registry's
+    config cut in process, `configs.get` patched for the launcher),
+    training through `repro_torch.launch.train` (device None: the GPU):
+    float32 masters, bf16 compute, batch 2 x 4,096 tokens, Adam (lr 3e-4,
+    clip 1.0); 3 steps and a checkpoint, then `--resume` of one more
+    step.  Each run with every count set to 0 just
     before and read just after: per step each layer's flash attention and
     scan run twice (the forward and the remat recompute; the backward is
     the plain chunked forms'), all on the tensor-core flash instance and
@@ -1974,18 +2011,22 @@ def lm_train_phase(counters: list, card: str) -> dict:
     from repro_torch import configs
     from repro_torch.kernels import flash_attention, linear_scan
     from repro_torch.launch import train as train_cli
+    from repro_torch.models import lm
 
     names = [fn.__name__ for fn in counters]
-    cfg = configs.get("hymba-1.5b")
+    cfg = dataclasses.replace(configs.get("hymba-1.5b"),
+                              n_layers=HYMBA_TRAIN_LAYERS)
     batch, seq = 2, 4096
     per_step = 2 * cfg.n_layers
     out = {"launches": [0] * len(counters),
-           "parity": lm_path_parity(cfg, card)}
+           "parity": lm_path_parity(configs.get("hymba-1.5b"), card)}
+    with torch.device("meta"):
+        trained_params = n_params(lm.init(torch.Generator(), cfg))
     fa_split = flash_attention.flash_attention.instance_launches
     ls_split = linear_scan.linear_scan.instance_launches
     with tempfile.TemporaryDirectory() as ckpt:
         # the two runs leave two checkpoints (params, m, v in float32)
-        need = 2 * 12 * out["parity"]["n_params"]
+        need = 2 * 12 * trained_params
         free = shutil.disk_usage(ckpt).free
         print(f"checkpoint disk: {need / 1e9:.1f} GB needed for two "
               f"checkpoints, {free / 1e9:.1f} GB free in {ckpt}")
@@ -2001,10 +2042,13 @@ def lm_train_phase(counters: list, card: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
             zero_counts(counters)
             t0 = time.perf_counter()
-            history = train_cli.main([
-                "--arch", "hymba-1.5b", "--steps", str(steps), "--batch",
-                str(batch), "--seq", str(seq), "--checkpoint-dir", ckpt,
-                "--checkpoint-every", "1000"] + extra)
+            with patched(configs, "get", lambda get: lambda name: (
+                    cfg if name == "hymba-1.5b" else get(name))):
+                history = train_cli.main([
+                    "--arch", "hymba-1.5b", "--steps", str(steps),
+                    "--batch", str(batch), "--seq", str(seq),
+                    "--checkpoint-dir", ckpt, "--checkpoint-every",
+                    "1000"] + extra)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = [fn.launches for fn in counters]
@@ -2041,6 +2085,454 @@ def lm_train_phase(counters: list, card: str) -> dict:
                                                      counts)]
             out[label] = {"wall_s": wall, "peak_bytes": peak,
                           "history": history}
+    return out
+
+
+# The LM families of phase 5 (`lm_families_phase`): each arch's depth as
+# run, cut from its full config by bf16 weight bytes so that the float32
+# draw (twice the bf16 bytes) fits beside the rest of the run; None = all
+# layers.  The MoE archs keep their dense first layer and 3 MoE layers.
+FAMILY_LAYERS = {"rwkv6-1.6b": None, "h2o-danube-1.8b": None,
+                 "starcoder2-7b": None, "llava-next-mistral-7b": None,
+                 "gemma2-27b": 8, "command-r-35b": 4,
+                 "deepseek-moe-16b": 4, "moonshot-v1-16b-a3b": 4}
+# the float32 kernel-vs-plain comparison's depth (batch 1)
+FAMILY_PARITY_LAYERS = {"gemma2-27b": 4, "deepseek-moe-16b": 2,
+                        "moonshot-v1-16b-a3b": 2}
+# served prompt lengths: 2 x 2,048 Zipf tokens, except where the 4,096-token
+# window must wrap its ring buffer (5,000), and llava's 576 patch embeddings
+# before 1,472 text tokens
+FAMILY_PROMPT = {"gemma2-27b": 5000, "h2o-danube-1.8b": 5000}
+FAMILY_NEW = 16
+
+
+def lm_family_kernel_times(gen, dev, card: str, errs: dict) -> dict:
+    """The two LM kernels at the families' main-path shapes, bf16 as
+    served: flash attention at gemma2-27b's local layer (D 128, 32 / 16
+    heads, window 4,096, softcap 50, scale 144^-1/2) and h2o-danube's (D
+    80, 32 / 8, window 4,096), 2 x 5,000 tokens; the scan's RWKV read at
+    rwkv6-1.6b's prefill (64 rows of 2 x 2,048 steps, 64 x 64 state, u = 0,
+    q, k, v bf16 and w float32, as `time_mix` hands them) on both
+    instances, and at a decode step.  Each: kernel against plain on the
+    same inputs (into `errs`), device time and one call alone (kernel,
+    plain, library where one call computes it), and the bound.  Returns
+    the records by shape."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, linear_scan
+
+    bf16, out = torch.bfloat16, {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, (hq, hkv, d, softcap, scale) in (
+            ("gemma2-27b local layer", (32, 16, 128, 50.0, 144.0**-0.5)),
+            ("h2o-danube-1.8b", (32, 8, 80, None, None))):
+        b, sq, win = 2, 5000, 4096
+        q = torch.randn((b, hq, sq, d), generator=gen).to(dev, bf16)
+        k = torch.randn((b, hkv, sq, d), generator=gen).to(dev, bf16)
+        v = torch.randn((b, hkv, sq, d), generator=gen).to(dev, bf16)
+        kw = dict(window=win, softcap=softcap, scale=scale)
+        errs[f"flash_attention bfloat16 {label}"] = parity(
+            f"flash_attention [tensor_core] {label} q {tuple(q.shape)} kv "
+            f"{tuple(k.shape)} bf16: kernel vs mha_chunked",
+            flash_attention.flash_attention(q, k, v, **kw),
+            flash_attention.mha_chunked(q, k, v, **kw), TOL_FLASH["bfloat16"])
+        calls = {"plain": lambda: flash_attention.mha_chunked(q, k, v, **kw),
+                 "kernel": lambda: flash_attention.flash_attention(q, k, v,
+                                                                   **kw)}
+        if softcap is None:  # SDPA has no softcap: no library call for gemma
+            band = torch.ones((sq, sq), dtype=torch.bool, device=dev)
+            band = band.tril() & ~band.tril(-win)
+            calls["library"] = lambda: sdpa(q, k, v, attn_mask=band,
+                                            enable_gqa=True)
+        print(f"time per call ({card}), flash_attention {label} q "
+              f"{tuple(q.shape)} kv {tuple(k.shape)} bf16, window {win}"
+              f"{f', softcap {softcap}' if softcap else ''}:")
+        ms, call_ms = time_calls(calls, windows=20, alone=10,
+                                 plain_windows=4)
+        bound = bound_ms(f"flash_attention {label}", 2 * nbytes(q, k),
+                         flash_operations(b * hq, sq, sq, d, True, win),
+                         ("bf16 tensor-core", PEAK_BF16_TC_PER_S))
+        out[label] = {"ms": ms["kernel"], "call_ms": call_ms["kernel"],
+                      "plain_ms": ms["plain"],
+                      "plain_call_ms": call_ms["plain"],
+                      "library_ms": ms.get("library"), "bound_ms": bound[0],
+                      "bound_by": bound[1],
+                      "max_abs_err": errs[f"flash_attention bfloat16 {label}"]}
+        print(f"  flash_attention {label} ({card}): {ms['kernel']:.7f} ms, "
+              f"{100 * bound[0] / ms['kernel']:.3f}% of the bound's speed "
+              f"({bound[0]:.7f} ms by {bound[1]}); library "
+              f"{ms.get('library')}")
+        del q, k, v, calls
+    rows, dk, sq = 2 * 32, 64, 2048
+    qs = torch.randn((rows, sq, dk), generator=gen).to(dev, bf16)
+    ks = (0.25 * torch.randn((rows, sq, dk), generator=gen)).to(dev, bf16)
+    vs = torch.randn((rows, sq, dk), generator=gen).to(dev, bf16)
+    ws = torch.exp(-torch.exp(-6.0 + torch.randn((rows, sq, dk),
+                                                 generator=gen))).to(dev)
+    u0 = torch.zeros((dk,), device=dev)
+    s0 = 0.1 * torch.randn((rows, dk, dk), generator=gen).to(dev)
+    for label, t_len, kinds in (("rwkv6-1.6b prefill", sq,
+                                 ("chunked", "step")),
+                                ("rwkv6-1.6b decode step", 1, ("step",))):
+        qt, kt, vt, wt = (x[:, :t_len].contiguous()
+                          for x in (qs, ks, vs, ws))
+        st = s0 if t_len == 1 else None
+        for kind in kinds:
+            o, s_fin = linear_scan.linear_scan(qt, kt, vt, wt, u0, st,
+                                               instance=kind)
+            o_p, s_p = linear_scan.linear_scan_chunked(qt, kt, vt, wt, u0,
+                                                       st)
+            errs[f"linear_scan {kind} {label}"] = max(
+                parity(f"linear_scan [{kind}] RWKV read, {name} {label} "
+                       f"{tuple(qt.shape)} (q, k, v bf16, w f32, u 0): "
+                       f"kernel vs linear_scan_chunked", a, w_.to(a.dtype),
+                       TOL[str(a.dtype).split(".")[-1]])
+                for name, a, w_ in (("o", o, o_p), ("S_final", s_fin, s_p)))
+        calls = {"plain": lambda: linear_scan.linear_scan_chunked(
+            qt, kt, vt, wt, u0, st)}
+        for kind in kinds:
+            calls[f"kernel {kind}"] = functools.partial(
+                linear_scan.linear_scan, qt, kt, vt, wt, u0, st,
+                instance=kind)
+        print(f"time per call ({card}), linear_scan RWKV read {label} "
+              f"{tuple(qt.shape)}, instances {kinds} (the rule picks "
+              f"{linear_scan.pick_instance(t_len, dk)}):")
+        ms, call_ms = time_calls(calls, windows=20, alone=10,
+                                 plain_windows=4)
+        bound = bound_ms(f"linear_scan {label}",
+                         nbytes(qt, kt, vt, wt, u0) + vt.numel() * 2
+                         + rows * dk * dk * 4
+                         + (nbytes(st) if st is not None else 0),
+                         scan_operations(rows, t_len, dk, dk, False))
+        kind = kinds[0]
+        out[label] = {"instance": kind, "ms": ms[f"kernel {kind}"],
+                      "call_ms": call_ms[f"kernel {kind}"],
+                      "plain_ms": ms["plain"],
+                      "plain_call_ms": call_ms["plain"], "library_ms": None,
+                      "bound_ms": bound[0], "bound_by": bound[1],
+                      "max_abs_err": errs[f"linear_scan {kind} {label}"]}
+        if len(kinds) > 1:
+            out[label]["step_instance_ms"] = ms["kernel step"]
+        print(f"  linear_scan {label} ({card}): {kind} instance "
+              f"{ms[f'kernel {kind}']:.7f} ms, "
+              f"{100 * bound[0] / ms[f'kernel {kind}']:.3f}% of the bound's "
+              f"speed ({bound[0]:.7f} ms by {bound[1]}); library call: none")
+    del qs, ks, vs, ws, s0
+    return out
+
+
+def n_params(module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+def family_serve(arch: str, counters: list, card: str) -> dict:
+    """One arch served at full width (bf16 weights from seed 0, depth
+    `FAMILY_LAYERS`): `lm.greedy_generate` of FAMILY_NEW tokens for 2
+    prompts, every count set to 0 just before and read just after, then
+    the same requests through `api.prefill` / `api.decode_step` for the
+    prefill ms and decode ms a step.  Returns the counts and readings."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels import flash_attention, linear_scan
+    from repro_torch.models import api, lm
+
+    names = [fn.__name__ for fn in counters]
+    full = configs.get(arch)
+    cfg = dataclasses.replace(full, param_dtype="bfloat16",
+                              n_layers=FAMILY_LAYERS[arch] or full.n_layers)
+    with torch.device("meta"):
+        n_full = n_params(lm.init(torch.Generator(), full))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_run = n_params(params)
+    print(f"{arch}: {cfg.n_layers} of {full.n_layers} layers, {n_run} "
+          f"parameters as run ({2 * n_run / 1e9:.2f} GB bf16), {n_full} in "
+          f"the full config; built on the card in "
+          f"{time.perf_counter() - t0:.3f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    s_len = FAMILY_PROMPT.get(arch, 2048)
+    batch = make_batch_for(cfg, 5, 2, s_len)
+    batch.pop("labels")
+    batch = {k: v.cuda() for k, v in batch.items()}
+    prompt, patches = batch["tokens"], batch.get("patches")
+    n_img = patches.shape[1] if patches is not None else 0
+    rwkv = cfg.mixer == "rwkv"
+    want = [0] * len(counters)
+    want[names.index("flash_attention")] = 0 if rwkv else cfg.n_layers
+    want[names.index("linear_scan")] = cfg.n_layers * FAMILY_NEW if rwkv \
+        else 0
+    want_split = ({"cuda_core": 0, "tensor_core": want[4]},
+                  {"step": cfg.n_layers * (FAMILY_NEW - 1) if rwkv else 0,
+                   "chunked": cfg.n_layers if rwkv else 0})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    out = lm.greedy_generate(params, cfg, prompt, FAMILY_NEW,
+                             patches=patches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = [fn.launches for fn in counters]
+    split = (dict(flash_attention.flash_attention.instance_launches),
+             dict(linear_scan.linear_scan.instance_launches))
+    peak = torch.cuda.max_memory_allocated()
+    label = (f"{arch} greedy_generate 2 x {s_len} tokens"
+             + (f" ({n_img} patch embeddings + {prompt.shape[1]} text)"
+                if n_img else ""))
+    print(f"main path {label} + {FAMILY_NEW} new ({card}): {wall:.3f} s "
+          f"wall, {2 * FAMILY_NEW / wall:.2f} generated tokens/s, peak "
+          f"memory {peak / 2**30:.3f} GiB, launches "
+          f"{dict(zip(names, counts))} (expected {dict(zip(names, want))});"
+          f" flash by instance {split[0]}, scan by instance {split[1]}")
+    if counts != want or split != want_split:
+        raise AssertionError(f"{label}: launches {counts} {split}, expected "
+                             f"{want} {want_split}")
+    if out.shape != (2, FAMILY_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"{label}: tokens {tuple(out.shape)} out of "
+                             f"range")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = api.prefill(params, cfg, batch,
+                                 cache_len=n_img + s_len + FAMILY_NEW)
+    toks = [torch.argmax(logits, dim=-1)]
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    finite = [torch.isfinite(logits).all()]
+    t0 = time.perf_counter()
+    for _ in range(FAMILY_NEW - 1):
+        logits, caches = api.decode_step(params, cfg, toks[-1], caches)
+        toks.append(torch.argmax(logits, dim=-1))
+        finite.append(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) / (FAMILY_NEW - 1)
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    same = int((torch.stack(toks, 1) == out).sum())
+    print(f"  {label} by phase ({card}): prefill {t_prefill * 1e3:.3f} ms, "
+          f"decode {t_decode * 1e3:.3f} ms per token step of 2 sequences; "
+          f"tokens equal to greedy_generate's: {same} of {out.numel()}")
+    del params, caches, logits, batch
+    return {"launches": counts, "split": split, "layers": cfg.n_layers,
+            "n_params": n_run, "n_params_full": n_full, "wall_s": wall,
+            "prefill_ms": t_prefill * 1e3, "decode_ms": t_decode * 1e3,
+            "tokens_per_s": 2 * FAMILY_NEW / wall, "peak_bytes": peak}
+
+
+def family_parity(arch: str) -> float:
+    """The kernel path against the plain path in float32 at full width,
+    batch 1, the served prompt length, `FAMILY_PARITY_LAYERS` deep (2 by
+    default): the logits of the prefill and of 4 teacher-forced decode
+    steps, within TOL["float32"] of max |logit|.  Returns the error."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import make_batch_for
+    from repro_torch.models import api
+
+    full = configs.get(arch)
+    cfg = dataclasses.replace(full, dtype="float32", param_dtype="float32",
+                              n_layers=FAMILY_PARITY_LAYERS.get(arch, 2))
+    params = api.init(cfg, seed=1)
+    s_len = FAMILY_PROMPT.get(arch, 2048)
+    batch = {k: v.cuda() for k, v in make_batch_for(
+        cfg, 6, 1, s_len + 4).items() if k != "labels"}
+    tokens = batch["tokens"]
+    n_txt = tokens.shape[1] - 4
+    n_img = batch["patches"].shape[1] if "patches" in batch else 0
+
+    def teacher_forced(impl: str):
+        c = dataclasses.replace(cfg, attn_impl=impl, scan_impl=impl)
+        logits, caches = api.prefill(
+            params, c, {**batch, "tokens": tokens[:, :n_txt]},
+            cache_len=n_img + n_txt + 4, cache_dtype=torch.float32)
+        out = [logits]
+        for t in range(n_txt, n_txt + 4):
+            logits, caches = api.decode_step(params, c, tokens[:, t], caches)
+            out.append(logits)
+        return torch.stack(out, 1)
+
+    err = parity(f"{arch} full width float32, {cfg.n_layers} layers, prefill "
+                 f"1 x {n_img + n_txt} + 4 decode steps, logits: kernel path "
+                 f"vs plain path", teacher_forced("kernel"),
+                 teacher_forced("chunked"), TOL["float32"])
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err
+
+
+def scan_outputs_checked(errs: dict):
+    """A wrap for `kernels.ops.gated_linear_scan` that runs the call as it
+    is and holds each "kernel" call's (o, S_final) against the kernel's
+    plain version on the same inputs (`linear_scan_chunked`, o cast to q's
+    dtype, as the wrapper runs it on a CPU tensor), no gradient taken;
+    the largest relative errors go into `errs`."""
+    import torch
+
+    from repro_torch.kernels import linear_scan
+
+    def wrap(scan):
+        def call(q, k, v, w, u=None, s0=None, *, decay_before_read=False,
+                 impl="kernel", chunk=64):
+            o, s = scan(q, k, v, w, u, s0,
+                        decay_before_read=decay_before_read, impl=impl,
+                        chunk=chunk)
+            if impl == "kernel":
+                with torch.no_grad():
+                    po, ps = linear_scan.linear_scan_chunked(
+                        *(x.detach() if x is not None else None
+                          for x in (q, k, v, w, u, s0)),
+                        decay_before_read=decay_before_read, chunk=chunk)
+                    for key, got, want in (("o", o, po.to(q.dtype)),
+                                           ("S_final", s, ps)):
+                        err = float((got.detach().float() - want.float())
+                                    .abs().max() / want.float().abs().max())
+                        errs[key] = max(errs.get(key, 0.0), err)
+                errs["calls"] = errs.get("calls", 0) + 1
+            return o, s
+        return call
+
+    return wrap
+
+
+def rwkv_train_step(counters: list, card: str) -> dict:
+    """rwkv6-1.6b training at full width and depth through `api.train_step`
+    (float32 masters, 2 x 1,024 tokens, Adam), from seed 0 each time:
+
+    * the main path, bf16 compute: every count set to 0 just before and
+      read just after (each layer's scan twice, the forward and the remat
+      recompute, on the chunked instance); loss and gradient norm finite;
+      each scan call's o within TOL["bfloat16"] and S_final within
+      TOL["float32"] of the kernel's plain version on the same inputs
+      (`scan_outputs_checked`).  In training the kernel gives the forward
+      alone: both paths' backward is `linear_scan_chunked`'s;
+    * the kernel path against the plain path (`scan_impl="chunked"`) in
+      float32: loss and gradient norm within TOL_TRAIN_LOSS /
+      TOL_TRAIN_GRAD_NORM, and two controls that this gate must reject:
+      the kernel handed u=None (the current token's k v counted twice, the
+      reference's "chunked" read, ROADMAP queue C) and the scan's decay
+      read in bf16.  The gradient norm is not compared in bf16: at this
+      init it moves by tens of per cent with one bf16 ulp of the scan's
+      output, on either path (PERF.md §6, PR 24;
+      `tools/rwkv6_bf16_gradient.py`)."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs, optim
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import linear_scan, ops
+    from repro_torch.models import api
+
+    names = [fn.__name__ for fn in counters]
+    cfg = configs.get("rwkv6-1.6b")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    batch = TokenStream(cfg, 2, 1024, seed=0).next()
+    bf16 = torch.bfloat16
+    scan_errs: dict = {}
+    runs = (
+        ("main path, bf16", cfg, scan_outputs_checked(scan_errs)),
+        ("kernel path, float32", cfg32, None),
+        ("plain path, float32", dataclasses.replace(cfg32,
+                                                    scan_impl="chunked"),
+         None),
+        ("control: the kernel handed u=None", cfg32,
+         lambda f: lambda q, k, v, w, u=None, *a, **kw: f(q, k, v, w, None,
+                                                          *a, **kw)),
+        ("control: scan decay read in bf16", cfg32,
+         lambda f: lambda q, k, v, w, *a, **kw: f(
+             q, k, v, w.to(bf16).to(w.dtype), *a, **kw)))
+    got = {}
+    for label, c, wrap in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = api.init(c, seed=0)
+        opt = optim.adam_init(list(params.parameters()))
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        with patched(ops, "gated_linear_scan", wrap or (lambda f: f)):
+            _, _, metrics = api.train_step(params, opt, batch, c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [fn.launches for fn in counters]
+        split = dict(linear_scan.linear_scan.instance_launches)
+        got[label] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
+        print(f"rwkv6-1.6b one training step ({label}), 2 x 1024 tokens "
+              f"({card}): loss {got[label]['loss']:.6f}, grad_norm "
+              f"{got[label]['grad_norm']:.6f}, {wall * 1e3:.3f} ms, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"launches {dict(zip(names, counts))}, scan by instance "
+              f"{split}")
+        if label.startswith("main path"):
+            want = [0] * len(counters)
+            want[names.index("linear_scan")] = 2 * cfg.n_layers
+            if counts != want or split != {"step": 0,
+                                           "chunked": 2 * cfg.n_layers}:
+                raise AssertionError(f"rwkv6 training step launches {counts} "
+                                     f"{split}, expected {want}")
+            launches, step_ms = counts, wall * 1e3
+        del params, opt, metrics
+    if not all(math.isfinite(v) for r in got.values() for v in r.values()):
+        raise AssertionError(f"rwkv6 training: non-finite {got}")
+    print(f"rwkv6-1.6b training step, main path's {scan_errs.get('calls')} "
+          f"scan calls against the kernel's plain version on their inputs: "
+          f"o max rel {scan_errs['o']:.3e} (tol {TOL['bfloat16']:g}), "
+          f"S_final {scan_errs['S_final']:.3e} (tol {TOL['float32']:g})")
+    if scan_errs.get("calls") != 2 * cfg.n_layers \
+            or scan_errs["o"] > TOL["bfloat16"] \
+            or scan_errs["S_final"] > TOL["float32"]:
+        raise AssertionError(f"rwkv6 training: the bf16 scan kernel "
+                             f"disagrees with its plain version {scan_errs}")
+    plain = got["plain path, float32"]
+    relative = {label: tuple(abs(r[k] - plain[k]) / abs(plain[k])
+                             for k in ("loss", "grad_norm"))
+                for label, r in got.items()
+                if label != "plain path, float32"
+                and not label.startswith("main path")}
+    for label, (dl, dg) in relative.items():
+        print(f"rwkv6-1.6b training step, {label} vs plain path, float32: "
+              f"loss rel {dl:.3e} (tol {TOL_TRAIN_LOSS:g}), grad_norm rel "
+              f"{dg:.3e} (tol {TOL_TRAIN_GRAD_NORM:g})")
+        passes = dl <= TOL_TRAIN_LOSS and dg <= TOL_TRAIN_GRAD_NORM
+        if passes == label.startswith("control"):
+            raise AssertionError(
+                f"rwkv6 training: the gate {'passes' if passes else 'fails'}"
+                f" the {label}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "readings": got,
+            "relative": relative, "scan_errs": scan_errs}
+
+
+def lm_families_phase(counters: list, card: str) -> dict:
+    """Phase 5's LM families: for each of the eight decoder-only archs
+    beside hymba, serving at full width (`family_serve`) and the float32
+    kernel-vs-plain logits (`family_parity`); then one rwkv6 training step
+    (`rwkv_train_step`).  Returns the launches by path and the readings."""
+    out = {}
+    for arch in ("rwkv6-1.6b", "h2o-danube-1.8b", "starcoder2-7b",
+                 "llava-next-mistral-7b", "gemma2-27b", "command-r-35b",
+                 "deepseek-moe-16b", "moonshot-v1-16b-a3b"):
+        t0 = time.perf_counter()
+        out[arch] = family_serve(arch, counters, card)
+        out[arch]["parity_err"] = family_parity(arch)
+        print(f"  {arch}: {time.perf_counter() - t0:.1f} s for serving and "
+              f"the float32 comparison")
+    t0 = time.perf_counter()
+    out["rwkv6-1.6b training"] = rwkv_train_step(counters, card)
+    print(f"  rwkv6-1.6b training step: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3036,6 +3528,9 @@ def main() -> int:
         record[f"linear_scan {kind}"] = dict(ms=ms, call_ms=call_ms,
                                              library_ms=None, bound=bound)
 
+    elapsed("phase 4: LM kernels at the families' shapes")
+    family_times = lm_family_kernel_times(gen, dev, card, errs)
+
     elapsed("phase 4: LM kernels at hymba's training shape, with gradients")
     train_fa, train_ls = lm_training_times(lm_cfg, gen, dev, card)
     for name, rec in record.items():
@@ -3254,6 +3749,19 @@ def main() -> int:
     by_path["linear_scan chunked"]["hymba-1.5b training"] = \
         trained["launches"][5]
     by_path["linear_scan step"]["hymba-1.5b training"] = 0
+
+    elapsed("phase 5: the LM families")
+    families = lm_families_phase(counters, card)
+    for arch, rec in families.items():
+        if arch.endswith("training"):
+            by_path["linear_scan chunked"][arch] = rec["launches"][5]
+            continue
+        fa_n, (_, ls_n) = rec["launches"][4], rec["split"]
+        if fa_n:
+            by_path["flash_attention"][arch] = fa_n
+        for kind, n_ in ls_n.items():
+            if n_:
+                by_path[f"linear_scan {kind}"][arch] = n_
     launches = {name: sum(p.values()) for name, p in by_path.items()}
 
     # --- 5b. where the paths' time goes (after the counts were read) ---------
@@ -3334,6 +3842,13 @@ def main() -> int:
         "training": {**train_fa, **training_errs(errs, "flash_attention")}}
     rec["extra"]["training"] = {**train_ls,
                                 **training_errs(errs, "linear_scan")}
+    # the families' main-path shapes beside hymba's
+    record["flash_attention"]["extra"]["families"] = {
+        k: v for k, v in family_times.items() if "rwkv6" not in k}
+    rec["extra"]["families"] = {"rwkv6-1.6b prefill": family_times[
+        "rwkv6-1.6b prefill"]}
+    record["linear_scan step"]["extra"] = {"families": {
+        "rwkv6-1.6b decode step": family_times["rwkv6-1.6b decode step"]}}
     print(json.dumps({"analysis": analysis}))
     print(json.dumps({"kernels": [{
         "name": name,

@@ -41,8 +41,10 @@ from typing import Iterable
 from .report import Finding, Report
 
 # hot modules for AST001-AST004: the code that runs on the device path of
-# the RL loop and its kernels.  Paths relative to the repo root.
+# the RL loop, the LM stack and their kernels.  Paths relative to the repo
+# root.
 HOT_PREFIXES = (
+    "src/repro_torch/models/",
     "src/repro_torch/envs/",
     "src/repro_torch/cfd/",
     "src/repro_torch/kernels/",
@@ -62,6 +64,7 @@ HOT_EXCLUDES = (
     "src/repro_torch/serve/loader.py",     # checkpoint restore on the host
     "src/repro_torch/kernels/_build.py",   # nvcc and ctypes, host only
     "src/repro_torch/core/checkpoints.py",  # file I/O on the host
+    "src/repro_torch/models/config.py",    # the config dataclass
 )
 KERNEL_PREFIX = "src/repro_torch/kernels/"
 

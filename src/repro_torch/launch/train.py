@@ -1,9 +1,12 @@
-"""LM training entry point (PyTorch port of `repro.launch.train`), for the
-port's registered architecture on one device.
+"""LM training entry point (PyTorch port of `repro.launch.train`), for any
+registered architecture (`repro_torch.configs.ARCH_NAMES`) on one device.
 
     # hymba-1.5b at full width and depth on the GPU:
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
         --steps 3 --batch 2 --seq 4096
+    # rwkv6-1.6b, the reference launcher's default arch, on the GPU:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
+        --steps 3 --batch 2 --seq 1024
     # smoke scale on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 2 \
         --batch 2 --seq 32 --device cpu

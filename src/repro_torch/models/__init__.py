@@ -3,14 +3,17 @@
   config     ArchConfig, a copy of the reference's dataclass
   attention  GQA + RoPE + SWA + softcap; train/prefill/decode paths
   ssm        Mamba-2-style selective SSM (hymba's branch)
+  rwkv       RWKV-6 time mix (the WKV scan) and channel mix (rwkv6)
+  moe        routed + shared experts with capacity dispatch (deepseek,
+             moonshot)
   blocks     norm + mixer + FFN block assembly, per-layer kinds, caches
-  lm         decoder-only assembly, loss and training step, serving entry
-             points, weight loading
+  lm         decoder-only assembly (dense prefix, llava's projector), loss
+             and training step, serving entry points, weight loading
   api        the entry points a trainer or a server calls
 
-Only what the registered architectures (`repro_torch.configs.ARCH_NAMES`)
-run is ported: the MoE FFN, the RWKV mixer, enc-dec and the vision
-projector are not.  Submodules are imported where they are used.
+Every decoder-only architecture of the reference
+(`repro_torch.configs.ARCH_NAMES`) runs; the enc-dec model (`encdec`) is
+not ported yet.  Submodules are imported where they are used.
 """
 from .config import ArchConfig
 

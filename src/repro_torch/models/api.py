@@ -1,5 +1,6 @@
 """The training and serving entry points (port of the decoder-only parts
-of `repro.models.api`).
+of `repro.models.api`: every registered architecture; the enc-dec whisper
+is not ported).
 
 `init` and `init_caches` take `device=None`, which means the GPU, and raise
 without one unless the caller asks for the CPU (`device="cpu"`).  `loss`,
@@ -27,7 +28,8 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> torch.nn.Module:
 
 
 def loss(params, cfg: ArchConfig, batch: dict):
-    """batch: {"tokens", "labels"} -> (scalar loss, metrics)."""
+    """batch: {"tokens", "labels", optional "patches"} -> (scalar loss,
+    metrics)."""
     return lm.lm_loss(params, cfg, batch)
 
 
@@ -39,8 +41,10 @@ def train_step(params, opt_state: optim.AdamState, batch: dict,
 
 def prefill(params, cfg: ArchConfig, batch: dict,
             cache_len: int | None = None, cache_dtype=torch.bfloat16):
-    """batch: {"tokens": (B, S)} -> (last-token logits (B, V), caches)."""
-    return lm.prefill(params, cfg, batch["tokens"], cache_len=cache_len,
+    """batch: {"tokens": (B, S), optional "patches" (llava)} -> (last-token
+    logits (B, V), caches)."""
+    return lm.prefill(params, cfg, batch["tokens"],
+                      patches=batch.get("patches"), cache_len=cache_len,
                       cache_dtype=cache_dtype)
 
 
@@ -56,4 +60,6 @@ def serve_step(params, cfg: ArchConfig, token: torch.Tensor, caches: dict):
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device=None) -> dict:
+    """Empty caches of every layer: KV buffers, SSM and RWKV states, the
+    dense prefix's."""
     return lm.init_caches(cfg, batch, max_len, dtype, resolve_device(device))

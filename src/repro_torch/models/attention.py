@@ -35,8 +35,9 @@ def rope_table(positions: torch.Tensor, head_dim: int, theta: float
     half = head_dim // 2
     exponents = -torch.arange(0, half, dtype=torch.float32,
                               device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exponents)
+    # theta as a Python scalar: no host-to-device copy (a blocking one on
+    # the card) at every layer and decode step
+    freqs = torch.pow(float(theta), exponents)
     angles = positions.float()[..., None] * freqs
     return torch.cos(angles), torch.sin(angles)
 
@@ -147,8 +148,8 @@ def decode_attention(p, cfg: ArchConfig, x: torch.Tensor, cache: dict, *,
     q, k, v = _qkv(p, cfg, x)  # (B, H*, 1, hd)
     pos = cache["pos"]  # absolute position of this token
     if cfg.rope:
-        cos, sin = rope_table(torch.tensor([pos], device=x.device), cfg.hd,
-                              cfg.rope_theta)
+        cos, sin = rope_table(torch.arange(pos, pos + 1, device=x.device),
+                              cfg.hd, cfg.rope_theta)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     ck, cv = cache["k"], cache["v"]
     length = ck.shape[2]

@@ -1,5 +1,5 @@
-"""Transformer block assembly: norms + mixer + FFN (port of the parts of
-`repro.models.blocks` that the ported architectures use).
+"""Transformer block assembly: norms + mixer + FFN for every decoder-only
+architecture (port of `repro.models.blocks`).
 
 A block is `(params, cfg, layer_kind)` plus a mode:
 
@@ -7,10 +7,15 @@ A block is `(params, cfg, layer_kind)` plus a mode:
     mode="prefill"  full sequence, builds the cache
     mode="decode"   one token against the cache
 
-Mixers: "attn" and the hybrid "attn+mamba" (hymba: attention and SSM heads
-read the same normed input, their outputs averaged).  FFNs: the dense
-swiglu / geglu / gelu_mlp.  The MoE FFN and the RWKV mixer are not ported
-yet and raise.
+`layer_kind` carries the static per-layer choices: the attention window
+(gemma-2's local/global alternation, hymba's and danube's SWA) and the FFN
+(the dense-prefix layers of deepseek and moonshot).  Mixers: "attn", the
+hybrid "attn+mamba" (hymba: attention and SSM heads read the same normed
+input, their outputs averaged) and "rwkv" (rwkv6's time mix).  FFNs: the
+dense swiglu / geglu / gelu_mlp, the MoE ("moe") and rwkv6's channel mix
+("rwkv_cmix").  Cache dicts mirror the mixer: an attention layer carries a
+KV dict, an RWKV layer one dict of its WKV state and both token shifts,
+the hybrid both.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import nn
-from . import attention, ssm
+from . import attention, moe, rwkv, ssm
 from .config import ArchConfig
 
 
@@ -39,15 +44,12 @@ def layer_kind(cfg: ArchConfig, i: int) -> LayerKind:
     return LayerKind(window, cfg.ffn, cfg.d_ff)
 
 
-def _check_ported(cfg: ArchConfig, kind: LayerKind) -> None:
-    if kind.ffn not in ("swiglu", "geglu", "gelu_mlp"):
-        raise NotImplementedError(f"FFN {kind.ffn!r} is not ported yet")
-    if cfg.mixer not in ("attn", "attn+mamba"):
-        raise NotImplementedError(f"mixer {cfg.mixer!r} is not ported yet")
-
-
-# --- dense FFNs -----------------------------------------------------------------
+# --- FFNs -------------------------------------------------------------------------
 def init_ffn(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind) -> dict:
+    if kind.ffn == "moe":
+        return moe.init(gen, cfg)
+    if kind.ffn == "rwkv_cmix":
+        return rwkv.init_channel_mix(gen, cfg)
     d, f = cfg.d_model, kind.d_ff
     w_in = nn.normal_init(1.0 / math.sqrt(d))
     p = {"wi": nn.dense_init(gen, d, f, bias=cfg.mlp_bias, w_init=w_in),
@@ -58,8 +60,17 @@ def init_ffn(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind) -> dict:
     return p
 
 
-def apply_ffn(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor
-              ) -> torch.Tensor:
+def apply_ffn(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor,
+              state: torch.Tensor | None = None):
+    """-> (out, aux, new_state_or_None): aux the MoE's (2,) losses (None
+    for the other FFNs, the reference's zeros), the state the channel
+    mix's token shift."""
+    if kind.ffn == "moe":
+        out, aux = moe.apply(p, cfg, x)
+        return out, aux, None
+    if kind.ffn == "rwkv_cmix":
+        out, shift = rwkv.channel_mix(p, cfg, x, state)
+        return out, None, shift
     h = nn.dense(p["wi"], x, dtype=x.dtype)
     if kind.ffn == "swiglu":
         h = F.silu(nn.dense(p["wg"], x, dtype=x.dtype)) * h
@@ -67,7 +78,7 @@ def apply_ffn(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor
         h = F.gelu(nn.dense(p["wg"], x, dtype=x.dtype), approximate="tanh") * h
     else:  # gelu_mlp
         h = F.gelu(h, approximate="tanh")
-    return nn.dense(p["wo"], h, dtype=x.dtype)
+    return nn.dense(p["wo"], h, dtype=x.dtype), None, None
 
 
 # --- norms ------------------------------------------------------------------------
@@ -87,13 +98,16 @@ def apply_norm(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 # --- block ---------------------------------------------------------------------
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind) -> dict:
-    _check_ported(cfg, kind)
     p: dict = {"norm1": init_norm(cfg), "ffn": init_ffn(gen, cfg, kind)}
-    if cfg.mixer == "attn+mamba":
+    if cfg.mixer == "rwkv":
+        p["mixer"] = rwkv.init_time_mix(gen, cfg)
+    elif cfg.mixer == "attn+mamba":
         p["mixer"] = {"attn": attention.init(gen, cfg),
                       "ssm": ssm.init(gen, cfg)}
-    else:
+    elif cfg.mixer == "attn":
         p["mixer"] = attention.init(gen, cfg)
+    else:
+        raise NotImplementedError(f"mixer {cfg.mixer!r} is not ported")
     if not cfg.parallel_block:
         p["norm2"] = init_norm(cfg)
     if cfg.post_norms:
@@ -105,6 +119,9 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind) -> dict:
 def init_block_cache(cfg: ArchConfig, kind: LayerKind, batch: int,
                      max_len: int, dtype=torch.bfloat16, device=None) -> dict:
     """Prefill/decode cache for one block (empty)."""
+    if cfg.mixer == "rwkv":
+        # one dict: the WKV state and the time- and channel-mix shifts
+        return {"mixer": rwkv.init_state(cfg, batch, dtype, device)}
     kv = attention.init_cache(cfg, batch, max_len, window=kind.window,
                               dtype=dtype, device=device)
     if cfg.mixer == "attn+mamba":
@@ -117,6 +134,16 @@ def _mix(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor, mode: str,
          cache: dict | None):
     """Apply the mixer.  Returns (out, new_cache_or_None)."""
     ca = cache["mixer"] if cache else None
+    if cfg.mixer == "rwkv":
+        out, wkv, shift = rwkv.time_mix(
+            p, cfg, x, ca["wkv"] if ca else None, ca["shift_t"] if ca else None)
+        if mode == "train":
+            return out, None
+        shift_c = (ca["shift_c"] if ca else
+                   torch.zeros((x.shape[0], cfg.d_model), dtype=x.dtype,
+                               device=x.device))
+        return out, {"wkv": wkv, "shift_t": shift, "shift_c": shift_c}
+
     if cfg.mixer == "attn+mamba":
         if mode == "train":
             a_out = attention.full_attention(p["attn"], cfg, x,
@@ -142,17 +169,26 @@ def _mix(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor, mode: str,
 
 def apply_block(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor,
                 mode: str = "train", cache: dict | None = None):
-    """-> (x, new_cache_or_None)."""
+    """-> (x, aux, new_cache_or_None); aux the MoE FFN's (2,) losses, None
+    for the other FFNs."""
     h = apply_norm(p["norm1"], cfg, x)
     m_out, m_cache = _mix(p["mixer"], cfg, kind, h, mode, cache)
     if cfg.parallel_block:  # command-r: attn & ffn read the same norm
-        x = x + m_out + apply_ffn(p["ffn"], cfg, kind, h)
-    else:
-        if cfg.post_norms:
-            m_out = apply_norm(p["post_norm1"], cfg, m_out)
-        x = x + m_out
-        f_out = apply_ffn(p["ffn"], cfg, kind, apply_norm(p["norm2"], cfg, x))
-        if cfg.post_norms:
-            f_out = apply_norm(p["post_norm2"], cfg, f_out)
-        x = x + f_out
-    return x, None if m_cache is None else {"mixer": m_cache}
+        f_out, aux, _ = apply_ffn(p["ffn"], cfg, kind, h)
+        x = x + m_out + f_out
+        return x, aux, None if m_cache is None else {"mixer": m_cache}
+    if cfg.post_norms:
+        m_out = apply_norm(p["post_norm1"], cfg, m_out)
+    x = x + m_out
+    shift_c = cache["mixer"]["shift_c"] if cache and cfg.mixer == "rwkv" \
+        else None
+    f_out, aux, f_state = apply_ffn(p["ffn"], cfg, kind,
+                                    apply_norm(p["norm2"], cfg, x), shift_c)
+    if cfg.post_norms:
+        f_out = apply_norm(p["post_norm2"], cfg, f_out)
+    x = x + f_out
+    if m_cache is None:
+        return x, aux, None
+    if f_state is not None:  # rwkv: the channel mix's shift
+        m_cache = dict(m_cache, shift_c=f_state)
+    return x, aux, {"mixer": m_cache}

@@ -1,12 +1,16 @@
 """Decoder-only LM assembly: training and serving (port of
-`repro.models.lm` for the decoder-only architectures the port registers).
+`repro.models.lm`, every architecture but the enc-dec whisper).
 
 Layers come in groups: group size = the architecture's layer-kind period
-(hymba: global attention every 8th layer, so groups of 8 blocks b0..b7).
-The reference stacks each block's parameters over the groups and
+(gemma-2's local/global pair = 2, hymba's global-every-8 = 8, otherwise
+1).  The reference stacks each block's parameters over the groups and
 `lax.scan`s; here `params["layers"]` is a list of groups and the forward
 pass a Python loop, so parameter names keep the JAX leaf paths with the
-group index in front (`layers.{m}.b{j}.mixer.attn.wq.w`).
+group index in front (`layers.{m}.b{j}.mixer.attn.wq.w`).  The MoE
+architectures' dense-prefix layers come first, a list as in the reference
+(`prefix.{i}...`), and llava's projector maps precomputed patch
+embeddings to image tokens that precede the text (`project_patches`).
+The MoE layers' auxiliary losses add up over the layers into `lm_loss`.
 
 Training remats each layer group (`cfg.remat`: the group runs under
 `torch.utils.checkpoint`, as the reference's `jax.checkpoint(group_fn)`),
@@ -21,8 +25,6 @@ Entry points:
     decode_step(params, cfg, token, c)    (logits, caches)
     greedy_generate(params, cfg, p, n)    (B, n) greedy tokens
     load_jax_params(params, jax_params)   carry the reference's weights over
-
-The MoE dense prefix and llava projector are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import nn, optim
@@ -63,9 +66,9 @@ def group_kinds(cfg: ArchConfig) -> list[blocks.LayerKind]:
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.is_encdec or cfg.vision_dim or n_prefix(cfg):
-        raise NotImplementedError(f"{cfg.name}: enc-dec, vision projector "
-                                  f"and dense-prefix layers are not ported")
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: the enc-dec model is not "
+                                  f"ported")
 
 
 # --- init -------------------------------------------------------------------------
@@ -78,23 +81,53 @@ def init(gen: torch.Generator, cfg: ArchConfig) -> nn.ParamTree:
     if not cfg.tie_embeddings:
         params["head"] = {"w": nn.normal_init(1.0 / math.sqrt(cfg.d_model))(
             gen, (cfg.d_model, cfg.vocab))}
+    if n_prefix(cfg):
+        params["prefix"] = [
+            blocks.init_block(gen, cfg, blocks.layer_kind(cfg, i))
+            for i in range(n_prefix(cfg))]
     kinds = group_kinds(cfg)
     params["layers"] = [
         {f"b{j}": blocks.init_block(gen, cfg, kind)
          for j, kind in enumerate(kinds)}
         for _ in range(n_groups(cfg))]
+    if cfg.vision_dim:  # llava's projector (2-layer GELU MLP)
+        params["projector"] = {
+            "w1": nn.dense_init(gen, cfg.vision_dim, cfg.d_model),
+            "w2": nn.dense_init(gen, cfg.d_model, cfg.d_model)}
     return nn.ParamTree(params)
+
+
+def jax_param_leaves(jax_params: dict, n_groups: int):
+    """(port parameter name, leaf) for every leaf of a tree in the
+    reference's `lm.init` layout (its params, or a gradient of them): each
+    block leaf stacked over the `n_groups` groups on a leading axis, the
+    dense prefix a list of blocks."""
+    def walk(prefix: str, tree, group: int | None):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                yield from walk(f"{prefix}{key}.", val, group)
+            elif isinstance(val, (list, tuple)):
+                for i, sub in enumerate(val):
+                    yield from walk(f"{prefix}{key}.{i}.", sub, group)
+            else:
+                yield prefix + key, val if group is None else val[group]
+
+    for key, val in jax_params.items():
+        if key == "layers":
+            for m in range(n_groups):
+                yield from walk(f"layers.{m}.", val, m)
+        else:
+            yield from walk("", {key: val}, None)
 
 
 def load_jax_params(params: nn.ParamTree, jax_params: dict) -> None:
     """Copy the reference's parameter tree (numpy leaves, `lm.init`'s
-    layout: each block leaf stacked over the groups on a leading axis) into
-    `params`, leaf by leaf, each cast to the port's dtype.  Raises unless
-    every leaf of both trees is matched, with equal shapes."""
+    layout, see `jax_param_leaves`) into `params`, leaf by leaf, each cast
+    to the port's dtype.  Raises unless every leaf of both trees is
+    matched, with equal shapes."""
     ours = dict(params.named_parameters())
     seen = set()
-
-    def put(path: str, leaf) -> None:
+    for path, leaf in jax_param_leaves(jax_params, len(params["layers"])):
         if path not in ours:
             raise KeyError(f"reference leaf {path} has no counterpart")
         arr = np.asarray(leaf, dtype=np.float32)
@@ -104,20 +137,6 @@ def load_jax_params(params: nn.ParamTree, jax_params: dict) -> None:
         with torch.no_grad():
             ours[path].copy_(torch.tensor(arr))
         seen.add(path)
-
-    def walk(prefix: str, tree, group: int | None) -> None:
-        for key, val in tree.items():
-            if isinstance(val, dict):
-                walk(f"{prefix}{key}.", val, group)
-            else:
-                put(prefix + key, val if group is None else val[group])
-
-    for key, val in jax_params.items():
-        if key == "layers":
-            for m in range(len(params["layers"])):
-                walk(f"layers.{m}.", val, m)
-        else:
-            walk(f"{key}.", val, None)
     missing = sorted(set(ours) - seen)
     if missing:
         raise KeyError(f"port parameters not in the reference tree: "
@@ -127,13 +146,20 @@ def load_jax_params(params: nn.ParamTree, jax_params: dict) -> None:
 # --- caches -------------------------------------------------------------------------
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device=None) -> dict:
-    """Empty caches: `{"layers": [group m: {"b{j}": block cache}]}`."""
+    """Empty caches: `{"layers": [group m: {"b{j}": block cache}]}`, and
+    `"prefix": [block cache]` for the dense-prefix layers."""
     kinds = group_kinds(cfg)
-    return {"layers": [
+    caches: dict = {"layers": [
         {f"b{j}": blocks.init_block_cache(cfg, kind, batch, max_len, dtype,
                                           device)
          for j, kind in enumerate(kinds)}
         for _ in range(n_groups(cfg))]}
+    if n_prefix(cfg):
+        caches["prefix"] = [
+            blocks.init_block_cache(cfg, blocks.layer_kind(cfg, i), batch,
+                                    max_len, dtype, device)
+            for i in range(n_prefix(cfg))]
+    return caches
 
 
 # --- forward -------------------------------------------------------------------------
@@ -145,36 +171,81 @@ def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor
     return x
 
 
-def _train_group(p_m, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """One layer group's blocks in train mode (no caches)."""
-    for j, kind in enumerate(group_kinds(cfg)):
-        x, _ = blocks.apply_block(p_m[f"b{j}"], cfg, kind, x, "train")
+def project_patches(params, cfg: ArchConfig, patches: torch.Tensor
+                    ) -> torch.Tensor:
+    """llava: precomputed patch embeddings (B, N, vision_dim) -> image
+    tokens (B, N, D), through the 2-layer GELU projector.  As in the
+    reference the product promotes to the weights' dtype (float32 masters
+    give float32 image tokens)."""
+    p = params["projector"]
+    h = nn.dense(p["w1"], patches.to(getattr(torch, cfg.dtype)))
+    return nn.dense(p["w2"], F.gelu(h, approximate="tanh"))
+
+
+def _embed_input(params, cfg: ArchConfig, tokens: torch.Tensor,
+                 patches: torch.Tensor | None) -> torch.Tensor:
+    """Token embeddings, preceded by llava's image tokens where patches are
+    given; the two join in their promoted dtype, as `jnp.concatenate`."""
+    x = embed_tokens(params, cfg, tokens)
+    if cfg.vision_dim and patches is not None:
+        img = project_patches(params, cfg, patches.to(x.device))
+        dt = torch.promote_types(img.dtype, x.dtype)
+        x = torch.cat([img.to(dt), x.to(dt)], dim=1)
     return x
 
 
+def _add(total: torch.Tensor | None, aux: torch.Tensor | None):
+    """Sum of the MoE layers' aux losses; None while no layer gave one."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
+def _train_group(p_m, cfg: ArchConfig, x: torch.Tensor):
+    """One layer group's blocks in train mode (no caches) -> (x, aux)."""
+    aux = None
+    for j, kind in enumerate(group_kinds(cfg)):
+        x, a, _ = blocks.apply_block(p_m[f"b{j}"], cfg, kind, x, "train")
+        aux = _add(aux, a)
+    return x, aux
+
+
 def forward_hidden(params, cfg: ArchConfig, x: torch.Tensor,
-                   mode: str = "train", caches: dict | None = None
-                   ) -> tuple[torch.Tensor, dict | None]:
-    """Embedded input (B, S, D) -> (hidden, new caches; None in train).
+                   mode: str = "train", caches: dict | None = None):
+    """Embedded input (B, S, D) -> (hidden, aux, new caches): aux the summed
+    MoE losses (2,) (None without an MoE layer), the caches None in train.
     With `cfg.remat`, each group in train mode keeps only its input for
     the backward pass and runs again there."""
+    aux = None
+    new_prefix = []
+    for i in range(n_prefix(cfg)):
+        x, a, c = blocks.apply_block(
+            params["prefix"][i], cfg, blocks.layer_kind(cfg, i), x, mode,
+            caches["prefix"][i] if caches is not None else None)
+        aux = _add(aux, a)
+        new_prefix.append(c)
     if mode == "train" and cfg.remat and torch.is_grad_enabled():
         for p_m in params["layers"]:
-            x = checkpoint(_train_group, p_m, cfg, x, use_reentrant=False)
-        return x, None
+            x, a = checkpoint(_train_group, p_m, cfg, x, use_reentrant=False)
+            aux = _add(aux, a)
+        return x, aux, None
     kinds = group_kinds(cfg)
     new_layers = []
     for m, p_m in enumerate(params["layers"]):
         c_m = caches["layers"][m] if caches is not None else None
         new_c = {}
         for j, kind in enumerate(kinds):
-            x, new_c[f"b{j}"] = blocks.apply_block(
+            x, a, new_c[f"b{j}"] = blocks.apply_block(
                 p_m[f"b{j}"], cfg, kind, x, mode,
                 c_m[f"b{j}"] if c_m is not None else None)
+            aux = _add(aux, a)
         new_layers.append(new_c)
     if mode == "train" or caches is None:
-        return x, None
-    return x, {"layers": new_layers}
+        return x, aux, None
+    new_caches = {"layers": new_layers}
+    if new_prefix:
+        new_caches["prefix"] = new_prefix
+    return x, aux, new_caches
 
 
 def logits_for(params, cfg: ArchConfig, hidden: torch.Tensor
@@ -230,20 +301,26 @@ def chunked_ce(params, cfg: ArchConfig, hidden: torch.Tensor,
 
 def lm_loss(params, cfg: ArchConfig, batch: dict
             ) -> tuple[torch.Tensor, dict]:
-    """batch: {"tokens" (B, S), "labels" (B, S), optional "mask"} -> (loss,
-    metrics).  The MoE auxiliary terms are zeros: no registered
-    architecture has an MoE layer."""
+    """batch: {"tokens" (B, S), "labels" (B, S), optional "mask" and, for
+    llava, "patches" (B, N, vision_dim)} -> (loss, metrics).  The loss adds
+    the MoE layers' load-balance (x 0.01) and router z (x 1e-3) losses,
+    summed over the layers."""
     _check_ported(cfg)
     dev = _device(params)
     tokens, labels = batch["tokens"].to(dev), batch["labels"].to(dev)
-    x = embed_tokens(params, cfg, tokens)
-    x, _ = forward_hidden(params, cfg, x, mode="train")
+    x = _embed_input(params, cfg, tokens, batch.get("patches"))
+    n_img = x.shape[1] - tokens.shape[1]
+    x, aux, _ = forward_hidden(params, cfg, x, mode="train")
+    if n_img:  # positions [n_img-1, n_img+T-1) predict tok_0..tok_{T-1}
+        x = x[:, n_img - 1:n_img - 1 + tokens.shape[1]]
     mask = batch.get("mask")
     mask = (torch.ones(labels.shape, device=dev) if mask is None
             else mask.to(dev, torch.float32))
     nll_sum, count = chunked_ce(params, cfg, x, labels, mask)
     ce = nll_sum / torch.clamp(count, min=1.0)
-    lb = z = torch.zeros((), device=dev)
+    if aux is None:
+        aux = torch.zeros((2,), device=dev)
+    lb, z = aux[0], aux[1]
     loss = ce + 0.01 * lb + 1e-3 * z
     return loss, {"loss": loss, "ce": ce, "moe_lb": lb, "router_z": z,
                   "tokens": count}
@@ -271,36 +348,43 @@ def train_step(params, opt_state: optim.AdamState, batch: dict,
 # --- serving -------------------------------------------------------------------------
 @torch.no_grad()
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
-            cache_len: int | None = None, cache_dtype=torch.bfloat16
-            ) -> tuple[torch.Tensor, dict]:
-    """Process the prompt (B, S), build the caches.  Returns (last-token
-    logits (B, V), caches)."""
+            patches: torch.Tensor | None = None, cache_len: int | None = None,
+            cache_dtype=torch.bfloat16) -> tuple[torch.Tensor, dict]:
+    """Process the prompt (B, S), after llava's image tokens where patches
+    are given, and build the caches.  Returns (last-token logits (B, V),
+    caches)."""
     tokens = tokens.to(_device(params))
-    b, s = tokens.shape
-    x = embed_tokens(params, cfg, tokens)
-    caches = init_caches(cfg, b, cache_len or s, cache_dtype, x.device)
-    x, caches = forward_hidden(params, cfg, x, mode="prefill", caches=caches)
+    x = _embed_input(params, cfg, tokens, patches)
+    caches = init_caches(cfg, tokens.shape[0], cache_len or x.shape[1],
+                         cache_dtype, x.device)
+    x, _, caches = forward_hidden(params, cfg, x, mode="prefill",
+                                  caches=caches)
     return logits_for(params, cfg, x[:, -1:])[:, 0], caches
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches: dict
                 ) -> tuple[torch.Tensor, dict]:
-    """One decode step.  token: (B,) -> (logits (B, V), caches).  The
+    """One decode step.  token: (B,) -> (logits (B, V), caches).  The KV
     caches are updated in place (see `models.attention`)."""
     x = embed_tokens(params, cfg, token.to(_device(params))[:, None])
-    x, caches = forward_hidden(params, cfg, x, mode="decode", caches=caches)
+    x, _, caches = forward_hidden(params, cfg, x, mode="decode",
+                                  caches=caches)
     return logits_for(params, cfg, x)[:, 0], caches
 
 
 @torch.no_grad()
 def greedy_generate(params, cfg: ArchConfig, prompt: torch.Tensor,
-                    n_new: int) -> torch.Tensor:
-    """Greedy decoding: prefill the prompt (B, S), then n_new - 1 decode
-    steps.  Returns the (B, n_new) generated tokens (int64), on the
-    parameters' device.  The caches are bf16, as in the reference."""
-    logits, caches = prefill(params, cfg, prompt,
-                             cache_len=prompt.shape[1] + n_new)
+                    n_new: int, patches: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """Greedy decoding: prefill the prompt (B, S) (after llava's image
+    tokens where patches are given), then n_new - 1 decode steps.  Returns
+    the (B, n_new) generated tokens (int64), on the parameters' device.
+    The caches are bf16, as in the reference."""
+    n_img = patches.shape[1] if cfg.vision_dim and patches is not None \
+        else 0
+    logits, caches = prefill(params, cfg, prompt, patches,
+                             cache_len=n_img + prompt.shape[1] + n_new)
     toks = [torch.argmax(logits, dim=-1)]
     for _ in range(n_new - 1):
         logits, caches = decode_step(params, cfg, toks[-1], caches)

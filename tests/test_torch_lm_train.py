@@ -346,7 +346,8 @@ def test_chunked_ce_matches_a_full_softmax():
 
 def test_token_stream_matches_reference():
     """`TokenStream` batches, cursor and state round trip equal the
-    reference's; `make_batch_for` raises for enc-dec and vision."""
+    reference's; `make_batch_for` raises for enc-dec and gives the
+    reference's vision batch (tokens, labels and llava's patches)."""
     jcfg, pcfg = _cfgs()
     ours = synthetic.TokenStream(pcfg, 3, 17, seed=7)
     theirs = jsynthetic.TokenStream(jcfg, 3, 17, seed=7)
@@ -361,10 +362,20 @@ def test_token_stream_matches_reference():
     other.load_state_dict(ours.state_dict())
     np.testing.assert_array_equal(other.next()["tokens"].numpy(),
                                   np.asarray(theirs.next()["tokens"]))
-    for field in ({"encoder_layers": 2}, {"vision_dim": 8}):
-        with pytest.raises(NotImplementedError):
-            synthetic.make_batch_for(dataclasses.replace(pcfg, **field), 0,
-                                     1, 8)
+    with pytest.raises(NotImplementedError):
+        synthetic.make_batch_for(dataclasses.replace(pcfg, encoder_layers=2),
+                                 0, 1, 8)
+    vision = {"vision_dim": 8, "vision_tokens": 5}
+    ours = synthetic.make_batch_for(dataclasses.replace(pcfg, **vision), 4,
+                                    2, 20)
+    theirs = jsynthetic.make_batch_for(dataclasses.replace(jcfg, **vision),
+                                       4, 2, 20)
+    assert set(ours) == set(theirs) == {"tokens", "labels", "patches"}
+    assert ours["patches"].shape == (2, 5, 8) and ours["tokens"].shape == (
+        2, 15)
+    for key in ours:
+        np.testing.assert_array_equal(ours[key].numpy(),
+                                      np.asarray(theirs[key]))
 
 
 @pytest.mark.parametrize("weight_decay,grad_clip", [(0.0, None), (0.1, 1.0),

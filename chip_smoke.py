@@ -37,7 +37,9 @@ In order, and any failure exits non-zero:
      8 and C from 1 to 5; smagorinsky_nut on the strided views it reads in
      place, aligned or not, and a stride-0 C_s); flash
      attention (each instance, with the model's transposed views, D up to
-     256, ragged S) and the linear scan (each instance) at hymba-1.5b's
+     256, ragged S; whisper-tiny's three non-causal corners on its model's
+     views: the encoder's 1,500 x 1,500, the cross-attention's 416 x 1,500
+     and 1 x 1,500) and the linear scan (each instance) at hymba-1.5b's
      shapes and at the other corners of their contracts; then one RL
      interval of each CFD
      scenario on the kernel path against the staged plain path, and
@@ -73,7 +75,11 @@ In order, and any failure exits non-zero:
      flash attention at gemma2-27b's local layer (D 128, softcap 50) and
      h2o-danube-1.8b's (D 80), 2 x 5,000 tokens, window 4,096, and the
      scan's RWKV read at rwkv6-1.6b's prefill (both instances) and decode
-     step, each against its plain version first;
+     step, each against its plain version first; flash attention at
+     whisper-tiny's three serving shapes (4 x 6 heads of 64, not causal:
+     the encoder's 1,500 x 1,500, prefill's cross-attention 416 x 1,500
+     and a decode step's 1 x 1,500) beside scaled_dot_product_attention
+     without a mask;
      and the device kernels of a bf16 dg_derivative3 call with a bf16 D
      and of smagorinsky_nut as the channel calls it (each its kernel
      alone: no cast, no copy); at hymba's training shape, flash attention's
@@ -90,19 +96,21 @@ In order, and any failure exits non-zero:
      [-1, 1] and launching the fused RHS 3,250 times on its cluster
      instance;
      `channel_wm` (1 iteration, no
-     evaluation, 16 envs) must launch dg_derivative3, smagorinsky_nut and
-     wall_model_tau exactly 20 x 26 x 5 times each (the wall model once
+     evaluation, 16 envs, episodes cut to 5 RL steps, `CUT_STEPS`) must
+     launch dg_derivative3, smagorinsky_nut and
+     wall_model_tau exactly 5 x 26 x 5 times each (the wall model once
      per RHS for both walls; dg_derivative3 all on its tiled instance);
      the fleet `hit_les_24dof` + `channel_wm` + `burgers_96dof` through
      `fleet.make_fleet_runner` (32 envs, at least 8 each: 8 / 8 / 16, one
-     shared multitask policy) trains one pipelined iteration (2 fleet
+     shared multitask policy; the channel's and Burgers' episodes cut to
+     5 RL steps, `FLEET_CUT`) trains one pipelined iteration (2 fleet
      rollouts), one more pipelined iteration (1 rollout), then a second
      runner one synchronous iteration (1 rollout, with t_sample_s and
      t_update_s) followed by the evaluation episode of every scenario:
      each fleet rollout or evaluation must launch the fused RHS
      50 x 13 x 5 = 3,250 times (one launch per RK stage for all HIT envs,
      all on the cluster instance) and each channel kernel
-     20 x 26 x 5 = 2,600 times (dg_derivative3 all tiled), with update_ok
+     5 x 26 x 5 = 650 times (dg_derivative3 all tiled), with update_ok
      1 and every scenario's return_norm and eval_return_norm in [-1, 1];
      the env-steps the non-finite guard reverted are counted per
      sub-fleet: none in the channel and Burgers rollouts, none in any
@@ -129,7 +137,7 @@ In order, and any failure exits non-zero:
      on hit_les_24dof with 16 envs over 2 ranks (one iteration) and the
      fleet at 8 / 8 / 16 envs over 3 ranks (each scenario padded to 9 /
      9 / 18, one synchronous iteration): every rank's launches exact
-     (3,250 RHS, 2,600 of each channel kernel per rank and rollout) and
+     (3,250 RHS, 650 of each channel kernel per rank and rollout) and
      summed over the ranks by an all-reduce, params, Adam state and
      broker bitwise equal on every rank, update_ok 1, every return_norm
      in [-1, 1], no revert in the channel and Burgers rollouts, the
@@ -169,11 +177,12 @@ In order, and any failure exits non-zero:
      norm at 2 x 4,096 tokens on the kernel path against the plain path,
      and two controls (the kernel path with the attention's window dropped,
      and with the scan's decay read in bf16) that the same gate must
-     reject; then, at 16 of its 32 layers (cut in process to pay for the
-     LM families below), training through `repro_torch.launch.train` (float32
-     masters, bf16 compute, 2 x 4,096 tokens, Adam): 3 steps and a
-     checkpoint, then `--resume` of one more, finite loss and gradient
-     norm, flash attention and the chunked scan launched 2 x 16 times a
+     reject; then, at 8 of its 32 layers (cut in process to pay for the
+     LM families and whisper-tiny below), training through
+     `repro_torch.launch.train` (float32 masters, bf16 compute, 2 x 4,096
+     tokens, Adam): 3 steps and a checkpoint, then `--resume` of one more,
+     finite loss and gradient norm, flash attention and the chunked scan
+     launched 2 x 8 times a
      step (forward and remat recompute), peak device memory, and disk
      enough for two checkpoints checked first;
      the LM families (`lm_families_phase`): rwkv6-1.6b, h2o-danube-1.8b,
@@ -194,10 +203,26 @@ In order, and any failure exits non-zero:
      scan launches, each scan call within TOL of the kernel's plain
      version on its inputs, then in float32 the loss and gradient norm
      within the training pins of the plain path's, with two controls the
-     pins must reject; then
+     pins must reject; whisper-tiny (`whisper_phase`), the enc-dec family,
+     at full width and depth with bf16 weights from seed 0:
+     `lm.greedy_generate(..., frames=)` of 32 new tokens for 4 prompts of
+     416 Zipf tokens against 1,500 frames each (whisper's 448-position
+     context), launching flash attention 136 times on its tensor-core
+     instance (12 in prefill: the bidirectional encoder, the causal
+     self- and the non-causal cross-attention; the cross-attention, Sq =
+     1, in each decode step) and nothing else, with prefill ms, decode ms
+     a step, tokens/s and peak memory; the float32 kernel path against the
+     plain path (batch 1, whole depth, the served prompt) within
+     TOL_WHISPER of max |logit|, and the encoder run causal, which the
+     gate must reject; one training step at 2 x 4,096 tokens against
+     1,500 frames in bf16 (24 tensor-core launches, each flash call within
+     TOL_FLASH of the plain version on its inputs), then in float32 the
+     loss and gradient norm within TOL_WHISPER_TRAIN_* of the plain path's,
+     with the encoder-causal control rejected; then
      profiles one RL step of each CFD path (the channel's launches per
-     RHS), one HIT PPO epoch, one hymba prefill and one decode step
-     (torch.profiler) to show where the time goes;
+     RHS), one HIT PPO epoch, one hymba prefill and one decode step, one
+     whisper-tiny prefill and one decode step (torch.profiler) to show
+     where the time goes;
   6. prints one JSON line per the kernels' record (`launches` summed over
      the paths, `launches_by_path` beside it), then the last line
      `{"ok": true, "device": {...}}`.
@@ -295,10 +320,17 @@ TOL_FLEET_ROWS = 2e-5
 # 0.17 (the channel's bank rows differ little) to O(1).
 TOL_SPLIT = 2e-6
 SPLIT_ROWS = 16  # envs of each split run, the HIT path's
-# RL steps of the split runs' episodes, cut from 50 (hit_les_24dof), 20
-# (channel_wm) and 50 (burgers_96dof) to keep the run inside its limit:
-# every split RHS exchanges its faces through the host
-SPLIT_STEPS = {"hit_les_24dof": 10, "channel_wm": 5, "burgers_96dof": 5}
+# RL steps of an episode where a run cuts it, from 50 (hit_les_24dof), 20
+# (channel_wm) and 50 (burgers_96dof), to keep the run inside its limit:
+# the split runs (every split RHS exchanges its faces through the host),
+# and the channel and Burgers scenarios wherever they train (`FLEET_CUT`:
+# the channel path, the fleet in one process and over 3 ranks).  Both are
+# bound by the host's launches (~680 and ~87 per RHS: a channel RL step of
+# 8 envs took 2.6 s on the H100): at 20 and 50 steps their episodes set
+# most of the channel path's and the fleet's time.  The gates read an episode's first
+# step's rows or count launches per step, so no gate's data changes.
+CUT_STEPS = {"hit_les_24dof": 10, "channel_wm": 5, "burgers_96dof": 5}
+FLEET_CUT = ("channel_wm", "burgers_96dof")
 SPLIT3_NAMES = ("channel_wm", "burgers_96dof")  # split over 3 ranks
 FLEET_NAMES = ("hit_les_24dof", "channel_wm", "burgers_96dof")
 
@@ -616,11 +648,30 @@ def zero_counts(counters: list) -> None:
 
 def cut_env(name: str):
     """The registered env `name` with its episodes cut to
-    `SPLIT_STEPS[name]` RL steps."""
+    `CUT_STEPS[name]` RL steps."""
     from repro_torch import envs
 
-    return envs.make(name, t_end=SPLIT_STEPS[name]
+    return envs.make(name, t_end=CUT_STEPS[name]
                      * envs.make(name).cfg.dt_rl)
+
+
+@contextlib.contextmanager
+def episodes_cut(names=FLEET_CUT):
+    """Inside the block, `envs.make(name)` of a scenario in `names` (with
+    no `t_end` of its caller's) gives its episodes cut to `CUT_STEPS`: the
+    entry points (`rl_train`, `fleet.make_fleet_runner`) build their envs
+    through the registry."""
+    from repro_torch import envs
+
+    def wrap(make):
+        def make_cut(name, **overrides):
+            if name in names and "t_end" not in overrides:
+                overrides["t_end"] = CUT_STEPS[name] * make(name).cfg.dt_rl
+            return make(name, **overrides)
+        return make_cut
+
+    with patched(envs, "make", wrap):
+        yield
 
 
 def train(env_name: str, n_iter: int, counters: list,
@@ -702,7 +753,8 @@ def fleet_phase(counters: list, per_rollout: dict, card: str,
                 ckpt: str) -> tuple:
     """The heterogeneous fleet through `fleet.make_fleet_runner` (device
     None: the GPU): 32 envs apportioned by static step cost with at least 8
-    each, one shared multitask policy; one pipelined iteration (the
+    each, one shared multitask policy, the channel's and Burgers' episodes
+    cut (`episodes_cut`); one pipelined iteration (the
     prologue rollout, then update 0 and rollout 1), then one synchronous
     iteration of a second runner for the timings, followed by every
     scenario's evaluation episode.  Each call's launches must be
@@ -729,13 +781,14 @@ def fleet_phase(counters: list, per_rollout: dict, card: str,
     for label, pipelined, rollouts in (
             ("pipelined, prologue + iteration 0", True, 2),
             ("synchronous, iteration 0 + evaluation", False, 2)):
-        frunner = fleet.make_fleet_runner(
-            fleet_names, total_envs=32, min_envs=8,
-            run_cfg=FleetRunnerConfig(
-                pipelined=pipelined,
-                eval_every=10**6 if pipelined else 1,
-                checkpoint_every=10**6,
-                checkpoint_dir=os.path.join(ckpt, label[:4])))
+        with episodes_cut():
+            frunner = fleet.make_fleet_runner(
+                fleet_names, total_envs=32, min_envs=8,
+                run_cfg=FleetRunnerConfig(
+                    pipelined=pipelined,
+                    eval_every=10**6 if pipelined else 1,
+                    checkpoint_every=10**6,
+                    checkpoint_dir=os.path.join(ckpt, label[:4])))
         split = [m.n_envs for m in frunner.schedule.members]
         costs = [m.cost for m in frunner.schedule.members]
         print(f"fleet schedule: {dict(zip(fleet_names, split))}, "
@@ -928,12 +981,13 @@ def rank_worker(kind: str, out: str, ckpt: str) -> int:
         result["b_pad"] = runner.orch.b_pad
     elif kind == "fleet":
         mesh_lib.init_distributed()
-        runner = fleet.make_fleet_runner(
-            FLEET_NAMES, total_envs=32, min_envs=8,
-            mesh=mesh_lib.make_fleet_mesh(),
-            run_cfg=FleetRunnerConfig(pipelined=False, eval_every=10**6,
-                                      checkpoint_every=10**6,
-                                      checkpoint_dir=ckpt))
+        with episodes_cut():
+            runner = fleet.make_fleet_runner(
+                FLEET_NAMES, total_envs=32, min_envs=8,
+                mesh=mesh_lib.make_fleet_mesh(),
+                run_cfg=FleetRunnerConfig(pipelined=False, eval_every=10**6,
+                                          checkpoint_every=10**6,
+                                          checkpoint_dir=ckpt))
         for orch in runner.forch.orchs.values():
             orch.env = GuardReverts(orch.env)
         with patched(rollout_lib, "rollout", batch):
@@ -972,7 +1026,7 @@ def rank_worker(kind: str, out: str, ckpt: str) -> int:
 
 
 def split_rank(ckpt: str, out: str, counters: list, result: dict):
-    """One rank of hit_les_24dof (episodes cut to `SPLIT_STEPS`) split
+    """One rank of hit_les_24dof (episodes cut to `CUT_STEPS`) split
     over a (data 1, model 2) mesh by its x-slabs
     (`FleetConfig(elem_axis="model")`, 16 envs): first one RL interval of
     the first 16 bank rows under a fixed C_s field in float32 and one in
@@ -1042,7 +1096,7 @@ def split_rank(ckpt: str, out: str, counters: list, result: dict):
 
 def split3_rank(ckpt: str, out: str, counters: list, result: dict) -> None:
     """One rank of channel_wm and of burgers_96dof (`SPLIT3_NAMES`,
-    episodes cut to `SPLIT_STEPS`), each with 16 envs split over a (data 1,
+    episodes cut to `CUT_STEPS`), each with 16 envs split over a (data 1,
     model 3) mesh by its first element axis (`FleetConfig(elem_axis=
     "model")`): first one RL interval of its first 16 bank rows under a
     fixed action (rank 0 writes the inputs and the gathered state to
@@ -1113,7 +1167,7 @@ def split3_rank(ckpt: str, out: str, counters: list, result: dict) -> None:
 def split_phase(names: list, card: str, tmp: str, hit_one: list) -> dict:
     """(d) of `distributed_phase`: hit_les_24dof with 16 envs, each split
     over 2 ranks by its x-slabs (`split_rank`; episodes cut to
-    `SPLIT_STEPS`).  Gates: the ranks' PPO iteration launches
+    `CUT_STEPS`).  Gates: the ranks' PPO iteration launches
     dg_derivative3 (tiled) and smagorinsky_nut exactly 650 times each a
     rank and the fused RHS never; params and Adam state bitwise on both
     ranks; return_norm in [-1, 1]; the split RL interval within TOL_SPLIT
@@ -1250,7 +1304,7 @@ def split_phase(names: list, card: str, tmp: str, hit_one: list) -> dict:
 def split3_phase(names: list, card: str, tmp: str) -> dict:
     """(e) of `distributed_phase`: channel_wm and burgers_96dof, 16 envs
     each, every env split over 3 ranks by its first element axis
-    (`split3_rank`; episodes cut to `SPLIT_STEPS`).  Gates, for each: the
+    (`split3_rank`; episodes cut to `CUT_STEPS`).  Gates, for each: the
     split RL interval within TOL_SPLIT of the same assembly in one process
     and within TOL of the unsplit path, the state one env off outside
     TOL_SPLIT; every rank's launches exact (the channel's interval 130 and
@@ -1549,7 +1603,7 @@ def distributed_phase(counters: list, per_rollout: dict, card: str,
     """The fleet across ranks on the one card: (a) the collectives on a
     one-rank NCCL group; (b) `rl_train` on hit_les_24dof, 16 envs split
     over 2 ranks (8 each), one iteration; (c) the fleet `FLEET_NAMES` at
-    8 / 8 / 16 envs over 3 ranks (each padded: 9 / 9 / 18, 3 / 3 / 6 rows
+    8 / 8 / 16 envs (episodes cut as in `fleet_phase`) over 3 ranks (each padded: 9 / 9 / 18, 3 / 3 / 6 rows
     a rank), one synchronous iteration.  Ranks sharing a card use gloo.
     Gates: the launches of every rank exact (a rollout's per rank), all on
     the cluster / tiled instances; params, Adam state and broker bitwise
@@ -1980,13 +2034,16 @@ def lm_path_parity(cfg, card: str) -> dict:
     return {"readings": got, "relative": rel, "n_params": n_params}
 
 
-# hymba-1.5b training's depth through the launcher: 16 of its 32 layers
-# (2 groups of 8), cut in process to pay for the LM families' phase (two
-# 8.6 GB checkpoints in place of two 17.2 GB ones).  The kernel-vs-plain
+# hymba-1.5b training's depth through the launcher: 8 of its 32 layers
+# (one group of 8: 7 windowed, 1 global), cut in process to pay for the LM
+# families' and whisper-tiny's phases (two ~4.3 GB checkpoints in place of
+# two 17.2 GB ones; at 16 layers a whole run took up to 1,071 s of
+# the 1,200 s allowed).  The launcher's run has no gate that compares it with
+# a reference, so its depth holds no control.  The kernel-vs-plain
 # step (`lm_path_parity`) stays at full depth: at 16 layers its control
 # "scan decay read in bf16" read 1.67e-4 / 6.3e-4, inside the pins it must
 # fail (at 32: 1.33e-4 / 2.25e-2).
-HYMBA_TRAIN_LAYERS = 16
+HYMBA_TRAIN_LAYERS = 8
 
 
 def lm_train_phase(counters: list, card: str) -> dict:
@@ -2106,6 +2163,46 @@ FAMILY_PROMPT = {"gemma2-27b": 5000, "h2o-danube-1.8b": 5000}
 FAMILY_NEW = 16
 
 
+def flash_shape_times(label: str, q, k, v, kw: dict, library, card: str,
+                      errs: dict) -> dict:
+    """Flash attention's bf16 tensor-core instance at one main-path shape:
+    the kernel against its plain version on the same inputs (into
+    `errs`), `library` (one PyTorch call that computes the same function,
+    or None) against the plain version too, device time and one call
+    alone of each, and the bound.  Returns the shape's record."""
+    from repro_torch.kernels import flash_attention
+
+    key = f"flash_attention bfloat16 {label}"
+    shapes = f"q {tuple(q.shape)} kv {tuple(k.shape)} bf16 {kw}"
+    want = flash_attention.mha_chunked(q, k, v, **kw)
+    errs[key] = parity(f"flash_attention [tensor_core] {label} {shapes}: "
+                       f"kernel vs mha_chunked",
+                       flash_attention.flash_attention(q, k, v, **kw), want,
+                       TOL_FLASH["bfloat16"])
+    calls = {"plain": lambda: flash_attention.mha_chunked(q, k, v, **kw),
+             "kernel": lambda: flash_attention.flash_attention(q, k, v,
+                                                               **kw)}
+    if library is not None:
+        parity(f"library call {label}: scaled_dot_product_attention vs "
+               f"plain", library(), want, TOL["bfloat16"])
+        calls["library"] = library
+    print(f"time per call ({card}), flash_attention {label} {shapes}:")
+    ms, call_ms = time_calls(calls, windows=20, alone=10, plain_windows=4)
+    (b, hq, sq, d), skv = q.shape, k.shape[2]
+    bound = bound_ms(f"flash_attention {label}", 2 * nbytes(q, k),
+                     flash_operations(b * hq, sq, skv, d,
+                                      kw.get("causal", True),
+                                      kw.get("window")),
+                     ("bf16 tensor-core", PEAK_BF16_TC_PER_S))
+    print(f"  flash_attention {label} ({card}): {ms['kernel']:.7f} ms, "
+          f"{100 * bound[0] / ms['kernel']:.3f}% of the bound's speed "
+          f"({bound[0]:.7f} ms by {bound[1]}); library {ms.get('library')}")
+    return {"ms": ms["kernel"], "call_ms": call_ms["kernel"],
+            "plain_ms": ms["plain"], "plain_call_ms": call_ms["plain"],
+            "library_ms": ms.get("library"), "bound_ms": bound[0],
+            "bound_by": bound[1], "max_abs_err": errs[key]}
+
+
 def lm_family_kernel_times(gen, dev, card: str, errs: dict) -> dict:
     """The two LM kernels at the families' main-path shapes, bf16 as
     served: flash attention at gemma2-27b's local layer (D 128, 32 / 16
@@ -2119,7 +2216,7 @@ def lm_family_kernel_times(gen, dev, card: str, errs: dict) -> dict:
     the records by shape."""
     import torch
 
-    from repro_torch.kernels import flash_attention, linear_scan
+    from repro_torch.kernels import linear_scan
 
     bf16, out = torch.bfloat16, {}
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2130,39 +2227,16 @@ def lm_family_kernel_times(gen, dev, card: str, errs: dict) -> dict:
         q = torch.randn((b, hq, sq, d), generator=gen).to(dev, bf16)
         k = torch.randn((b, hkv, sq, d), generator=gen).to(dev, bf16)
         v = torch.randn((b, hkv, sq, d), generator=gen).to(dev, bf16)
-        kw = dict(window=win, softcap=softcap, scale=scale)
-        errs[f"flash_attention bfloat16 {label}"] = parity(
-            f"flash_attention [tensor_core] {label} q {tuple(q.shape)} kv "
-            f"{tuple(k.shape)} bf16: kernel vs mha_chunked",
-            flash_attention.flash_attention(q, k, v, **kw),
-            flash_attention.mha_chunked(q, k, v, **kw), TOL_FLASH["bfloat16"])
-        calls = {"plain": lambda: flash_attention.mha_chunked(q, k, v, **kw),
-                 "kernel": lambda: flash_attention.flash_attention(q, k, v,
-                                                                   **kw)}
+        library = None
         if softcap is None:  # SDPA has no softcap: no library call for gemma
             band = torch.ones((sq, sq), dtype=torch.bool, device=dev)
             band = band.tril() & ~band.tril(-win)
-            calls["library"] = lambda: sdpa(q, k, v, attn_mask=band,
-                                            enable_gqa=True)
-        print(f"time per call ({card}), flash_attention {label} q "
-              f"{tuple(q.shape)} kv {tuple(k.shape)} bf16, window {win}"
-              f"{f', softcap {softcap}' if softcap else ''}:")
-        ms, call_ms = time_calls(calls, windows=20, alone=10,
-                                 plain_windows=4)
-        bound = bound_ms(f"flash_attention {label}", 2 * nbytes(q, k),
-                         flash_operations(b * hq, sq, sq, d, True, win),
-                         ("bf16 tensor-core", PEAK_BF16_TC_PER_S))
-        out[label] = {"ms": ms["kernel"], "call_ms": call_ms["kernel"],
-                      "plain_ms": ms["plain"],
-                      "plain_call_ms": call_ms["plain"],
-                      "library_ms": ms.get("library"), "bound_ms": bound[0],
-                      "bound_by": bound[1],
-                      "max_abs_err": errs[f"flash_attention bfloat16 {label}"]}
-        print(f"  flash_attention {label} ({card}): {ms['kernel']:.7f} ms, "
-              f"{100 * bound[0] / ms['kernel']:.3f}% of the bound's speed "
-              f"({bound[0]:.7f} ms by {bound[1]}); library "
-              f"{ms.get('library')}")
-        del q, k, v, calls
+            library = lambda: sdpa(q, k, v, attn_mask=band,  # noqa: E731
+                                   enable_gqa=True)
+        out[label] = flash_shape_times(
+            label, q, k, v, dict(window=win, softcap=softcap, scale=scale),
+            library, card, errs)
+        del q, k, v, library
     rows, dk, sq = 2 * 32, 64, 2048
     qs = torch.randn((rows, sq, dk), generator=gen).to(dev, bf16)
     ks = (0.25 * torch.randn((rows, sq, dk), generator=gen)).to(dev, bf16)
@@ -2536,6 +2610,363 @@ def lm_families_phase(counters: list, card: str) -> dict:
     return out
 
 
+# whisper-tiny (phase 5, `whisper_phase`): 4 sequences of 1,500 frames
+# (`make_batch_for`), prompts of 416 Zipf tokens and 32 new tokens, which
+# fills whisper's 448-position decoder context; nothing is cut.  Training:
+# train_4k's 4,096 decoder tokens (its batch cut from 256 to 2) against
+# 1,500 frames.
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = 4, 416, 32
+WHISPER_TRAIN = (2, 4096)
+# whisper at full width and depth in float32, kernel path against plain
+# path: 8 layers whose attention sums differ only in their order (the
+# float32 instance within ~1e-6 of its plain version); 1e-5 of max |logit|
+TOL_WHISPER = 1e-5
+# one float32 training step's loss and gradient norm, kernel path against
+# plain path, relative: the forward differs by float32 reorderings (~1e-7
+# per attention), the backward is the plain vjp on both paths; two orders
+# of magnitude above that
+TOL_WHISPER_TRAIN_LOSS = 1e-5
+TOL_WHISPER_TRAIN_GRAD_NORM = 1e-4
+
+
+def whisper_kernel_times(gen, dev, card: str, errs: dict) -> dict:
+    """Flash attention at whisper-tiny's three serving shapes, bf16 as
+    served (6 heads of 64, non-causal): the encoder (4 x 1,500 frames
+    against themselves), the cross-attention in prefill (4 x 416 prompt
+    rows against 1,500 encoder states) and in a decode step (4 x 1 row
+    against 1,500).  Each: the kernel against its plain version on the
+    same inputs (into `errs`), device time and one call alone for the
+    kernel, the plain version and `scaled_dot_product_attention` (no mask,
+    not causal: the same function), and the bound.  Returns the records by
+    shape."""
+    import torch
+
+    bf16, out = torch.bfloat16, {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, skv, d = WHISPER_BATCH, 6, 1500, 64
+    for label, sq in (("whisper-tiny encoder", skv),
+                      ("whisper-tiny cross-attention, prefill",
+                       WHISPER_PROMPT),
+                      ("whisper-tiny cross-attention, decode step", 1)):
+        q = torch.randn((b, h, sq, d), generator=gen).to(dev, bf16)
+        k = torch.randn((b, h, skv, d), generator=gen).to(dev, bf16)
+        v = torch.randn((b, h, skv, d), generator=gen).to(dev, bf16)
+        out[label] = flash_shape_times(label, q, k, v, dict(causal=False),
+                                       lambda: sdpa(q, k, v), card, errs)
+        del q, k, v
+    return out
+
+
+def encoder_made_causal(src_len: int):
+    """A wrap for `kernels.ops.attention` that runs whisper's encoder (a
+    call of src_len queries against src_len keys) causal: the control that
+    the whisper gates must reject."""
+    def wrap(attend):
+        def call(q, k, v, *, causal=True, **kw):
+            enc = q.shape[2] == k.shape[2] == src_len
+            return attend(q, k, v, causal=causal or enc, **kw)
+        return call
+    return wrap
+
+
+def flash_outputs_checked(errs: dict):
+    """A wrap for `kernels.ops.attention` that runs the call as it is and
+    holds each "kernel" call's output against the kernel's plain version
+    on the same inputs (`mha_chunked`, no gradient taken); the largest
+    relative error goes into `errs["o"]`, the calls into `errs["calls"]`."""
+    import torch
+
+    from repro_torch.kernels import flash_attention
+
+    def wrap(attend):
+        def call(q, k, v, *, causal=True, window=None, softcap=None,
+                 scale=None, impl="kernel", block_k=1024):
+            kw = dict(causal=causal, window=window, softcap=softcap,
+                      scale=scale)
+            o = attend(q, k, v, impl=impl, block_k=block_k, **kw)
+            if impl == "kernel":
+                with torch.no_grad():
+                    want = flash_attention.mha_chunked(
+                        q.detach(), k.detach(), v.detach(), **kw).float()
+                    err = float((o.detach().float() - want).abs().max()
+                                / want.abs().max())
+                errs["o"] = max(errs.get("o", 0.0), err)
+                errs["calls"] = errs.get("calls", 0) + 1
+            return o
+        return call
+
+    return wrap
+
+
+def whisper_serve(counters: list, card: str) -> dict:
+    """whisper-tiny served at full width and depth (bf16 weights from seed
+    0): `lm.greedy_generate(..., frames=)` of WHISPER_NEW tokens for
+    WHISPER_BATCH prompts of WHISPER_PROMPT tokens against 1,500 frames
+    each, every count set to 0 just before and read just after: flash
+    attention per prefill once per encoder layer and twice per decoder
+    layer (causal self-, non-causal cross-attention), then once per decoder
+    layer a decode step (the cross-attention; the self-attention is the
+    dense decode path), all on the tensor-core instance, and nothing else.
+    Then the same requests through `api.prefill` / `api.decode_step` for
+    the prefill ms and decode ms a step.  Returns the counts and
+    readings."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels import flash_attention, linear_scan
+    from repro_torch.models import api, lm
+
+    names = [fn.__name__ for fn in counters]
+    cfg = dataclasses.replace(configs.get("whisper-tiny"),
+                              param_dtype="bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = api.init(cfg, seed=0)
+    batch = {k: v.cuda() for k, v in make_batch_for(
+        cfg, 5, WHISPER_BATCH, WHISPER_PROMPT).items() if k != "labels"}
+    prompt, frames = batch["tokens"], batch["frames"]
+    n_flash = (cfg.encoder_layers + 2 * cfg.n_layers
+               + (WHISPER_NEW - 1) * cfg.n_layers)
+    want = [0] * len(counters)
+    want[names.index("flash_attention")] = n_flash
+    want_split = ({"cuda_core": 0, "tensor_core": n_flash},
+                  {"step": 0, "chunked": 0})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    out = lm.greedy_generate(params, cfg, prompt, WHISPER_NEW, frames=frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = [fn.launches for fn in counters]
+    split = (dict(flash_attention.flash_attention.instance_launches),
+             dict(linear_scan.linear_scan.instance_launches))
+    peak = torch.cuda.max_memory_allocated()
+    label = (f"whisper-tiny greedy_generate {WHISPER_BATCH} x "
+             f"({frames.shape[1]} frames, {WHISPER_PROMPT} prompt tokens)")
+    n_tok = WHISPER_BATCH * WHISPER_NEW
+    print(f"main path {label} + {WHISPER_NEW} new ({card}): {wall:.3f} s "
+          f"wall, {n_tok / wall:.2f} generated tokens/s, peak memory "
+          f"{peak / 2**30:.3f} GiB, {n_params(params)} parameters, launches "
+          f"{dict(zip(names, counts))} (expected {dict(zip(names, want))}); "
+          f"flash by instance {split[0]}, scan by instance {split[1]}")
+    if counts != want or split != want_split:
+        raise AssertionError(f"{label}: launches {counts} {split}, expected "
+                             f"{want} {want_split}")
+    if out.shape != (WHISPER_BATCH, WHISPER_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"{label}: tokens {tuple(out.shape)} out of "
+                             f"range")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = api.prefill(params, cfg, batch,
+                                 cache_len=WHISPER_PROMPT + WHISPER_NEW)
+    toks = [torch.argmax(logits, dim=-1)]
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    finite = [torch.isfinite(logits).all()]
+    t0 = time.perf_counter()
+    for _ in range(WHISPER_NEW - 1):
+        logits, caches = api.decode_step(params, cfg, toks[-1], caches)
+        toks.append(torch.argmax(logits, dim=-1))
+        finite.append(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) / (WHISPER_NEW - 1)
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    same = int((torch.stack(toks, 1) == out).sum())
+    print(f"  {label} by phase ({card}): prefill {t_prefill * 1e3:.3f} ms "
+          f"(the encoder included), decode {t_decode * 1e3:.3f} ms per token "
+          f"step of {WHISPER_BATCH} sequences; tokens equal to "
+          f"greedy_generate's: {same} of {out.numel()}")
+    del params, caches, logits, batch
+    return {"launches": counts, "split": split, "wall_s": wall,
+            "prefill_ms": t_prefill * 1e3, "decode_ms": t_decode * 1e3,
+            "tokens_per_s": n_tok / wall, "peak_bytes": peak}
+
+
+def whisper_parity() -> dict:
+    """The kernel path against the plain path in float32 at full width and
+    depth, batch 1, the served prompt: the logits of the prefill (the
+    encoder over 1,500 frames included) and of 4 teacher-forced decode
+    steps, within TOL_WHISPER of max |logit|; then the control the gate
+    must reject, the kernel path with the encoder run causal.  Returns
+    the two errors."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(configs.get("whisper-tiny"), dtype="float32",
+                              param_dtype="float32")
+    params = api.init(cfg, seed=1)
+    batch = {k: v.cuda() for k, v in make_batch_for(
+        cfg, 6, 1, WHISPER_PROMPT + 4).items() if k != "labels"}
+    tokens = batch["tokens"]
+
+    def teacher_forced(impl: str, wrap=None):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        with patched(ops, "attention", wrap or (lambda f: f)):
+            logits, caches = api.prefill(
+                params, c, {**batch, "tokens": tokens[:, :WHISPER_PROMPT]},
+                cache_len=WHISPER_PROMPT + 4, cache_dtype=torch.float32)
+            out = [logits]
+            for t in range(WHISPER_PROMPT, WHISPER_PROMPT + 4):
+                logits, caches = api.decode_step(params, c, tokens[:, t],
+                                                 caches)
+                out.append(logits)
+        return torch.stack(out, 1)
+
+    plain = teacher_forced("chunked")
+    label = (f"whisper-tiny full width float32, {cfg.encoder_layers} + "
+             f"{cfg.n_layers} layers, prefill 1 x ({batch['frames'].shape[1]}"
+             f" frames, {WHISPER_PROMPT} tokens) + 4 decode steps, logits")
+    err = parity(f"{label}: kernel path vs plain path",
+                 teacher_forced("kernel"), plain, TOL_WHISPER)
+    control = teacher_forced("kernel", encoder_made_causal(
+        cfg.max_source_positions))
+    scale = float(plain.abs().max())
+    control_err = float((control - plain).abs().max())
+    print(f"control {label}: kernel path with the encoder run causal vs "
+          f"plain path: max|d|={control_err:.3e} rel="
+          f"{control_err / scale:.3e} (tol {TOL_WHISPER:g}) "
+          f"{'rejected' if control_err > TOL_WHISPER * scale else 'PASSED'}")
+    if not control_err > TOL_WHISPER * scale:
+        raise AssertionError(f"{label}: the gate passes the encoder run "
+                             f"causal")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"err": err, "control_err": control_err, "scale": scale}
+
+
+def whisper_train_step(counters: list, card: str) -> dict:
+    """whisper-tiny training at full width and depth through
+    `api.train_step` (float32 masters, WHISPER_TRAIN decoder tokens
+    against 1,500 frames each, Adam), from seed 0 each time:
+
+    * the main path, bf16 compute: every count set to 0 just before and
+      read just after (each attention twice, the forward and the remat
+      recompute: per layer one of the encoder, two of the decoder, all on
+      the tensor-core instance); loss and gradient norm finite; each flash
+      call's output within TOL_FLASH["bfloat16"] of the kernel's plain
+      version on the same inputs (`flash_outputs_checked`).  In training
+      the kernel gives the forward alone: both paths' backward is
+      `mha_chunked`'s;
+    * the kernel path against the plain path (`attn_impl="chunked"`) in
+      float32: loss and gradient norm within TOL_WHISPER_TRAIN_LOSS /
+      TOL_WHISPER_TRAIN_GRAD_NORM, and the control that the gate must
+      reject: the encoder run causal."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs, optim
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.models import api
+
+    names = [fn.__name__ for fn in counters]
+    cfg = configs.get("whisper-tiny")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    batch = TokenStream(cfg, *WHISPER_TRAIN, seed=0).next()
+    n_flash = 2 * (cfg.encoder_layers + 2 * cfg.n_layers)
+    flash_errs: dict = {}
+    runs = (
+        ("main path, bf16", cfg, flash_outputs_checked(flash_errs)),
+        ("kernel path, float32", cfg32, None),
+        ("plain path, float32", dataclasses.replace(cfg32,
+                                                    attn_impl="chunked"),
+         None),
+        ("control: the encoder run causal", cfg32,
+         encoder_made_causal(cfg.max_source_positions)))
+    got = {}
+    for label, c, wrap in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = api.init(c, seed=0)
+        opt = optim.adam_init(list(params.parameters()))
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        with patched(ops, "attention", wrap or (lambda f: f)):
+            _, _, metrics = api.train_step(params, opt, batch, c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [fn.launches for fn in counters]
+        split = dict(flash_attention.flash_attention.instance_launches)
+        got[label] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
+        print(f"whisper-tiny one training step ({label}), "
+              f"{WHISPER_TRAIN[0]} x {WHISPER_TRAIN[1]} tokens against "
+              f"{batch['frames'].shape[1]} frames ({card}): loss "
+              f"{got[label]['loss']:.6f}, grad_norm "
+              f"{got[label]['grad_norm']:.6f}, {wall * 1e3:.3f} ms, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"launches {dict(zip(names, counts))}, flash by instance "
+              f"{split}")
+        if label.startswith("main path"):
+            want = [0] * len(counters)
+            want[names.index("flash_attention")] = n_flash
+            if counts != want or split != {"cuda_core": 0,
+                                           "tensor_core": n_flash}:
+                raise AssertionError(f"whisper training step launches "
+                                     f"{counts} {split}, expected {want}")
+            launches, step_ms = counts, wall * 1e3
+        del params, opt, metrics
+    if not all(math.isfinite(v) for r in got.values() for v in r.values()):
+        raise AssertionError(f"whisper training: non-finite {got}")
+    print(f"whisper-tiny training step, main path's {flash_errs.get('calls')}"
+          f" flash calls against the kernel's plain version on their "
+          f"inputs: max rel {flash_errs.get('o', math.nan):.3e} (tol "
+          f"{TOL_FLASH['bfloat16']:g})")
+    if flash_errs.get("calls") != n_flash \
+            or not flash_errs["o"] <= TOL_FLASH["bfloat16"]:
+        raise AssertionError(f"whisper training: the bf16 flash kernel "
+                             f"disagrees with its plain version {flash_errs}")
+    plain = got["plain path, float32"]
+    relative = {label: tuple(abs(r[k] - plain[k]) / abs(plain[k])
+                             for k in ("loss", "grad_norm"))
+                for label, r in got.items()
+                if label != "plain path, float32"
+                and not label.startswith("main path")}
+    for label, (dl, dg) in relative.items():
+        print(f"whisper-tiny training step, {label} vs plain path, float32: "
+              f"loss rel {dl:.3e} (tol {TOL_WHISPER_TRAIN_LOSS:g}), grad_norm"
+              f" rel {dg:.3e} (tol {TOL_WHISPER_TRAIN_GRAD_NORM:g})")
+        passes = dl <= TOL_WHISPER_TRAIN_LOSS \
+            and dg <= TOL_WHISPER_TRAIN_GRAD_NORM
+        if passes == label.startswith("control"):
+            raise AssertionError(
+                f"whisper training: the gate "
+                f"{'passes' if passes else 'fails'} the {label}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "readings": got,
+            "relative": relative, "flash_errs": flash_errs}
+
+
+def whisper_phase(counters: list, card: str) -> dict:
+    """Phase 5's whisper-tiny: serving at full width (`whisper_serve`),
+    the float32 kernel-vs-plain logits (`whisper_parity`) and one training
+    step (`whisper_train_step`).  Returns the readings."""
+    t0 = time.perf_counter()
+    out = {"serve": whisper_serve(counters, card)}
+    out["parity"] = whisper_parity()
+    print(f"  whisper-tiny: {time.perf_counter() - t0:.1f} s for serving "
+          f"and the float32 comparison")
+    t0 = time.perf_counter()
+    out["training"] = whisper_train_step(counters, card)
+    print(f"  whisper-tiny training step: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def percentile(values: list, q: float) -> float:
     """The q-th percentile (0-100) of `values`, nearest rank."""
     ranked = sorted(values)
@@ -2810,7 +3241,7 @@ def main() -> int:
     from repro_torch.core.orchestrator import FleetConfig
     from repro_torch.core.runner import Runner
     from repro_torch.fleet.pipeline import FleetRunnerConfig
-    from repro_torch.data import lm_batch
+    from repro_torch.data import lm_batch, make_batch_for
     from repro_torch.kernels import (_build, dg_derivative, flash_attention,
                                      linear_scan, rhs, smagorinsky,
                                      wall_model)
@@ -3067,7 +3498,17 @@ def main() -> int:
         ("ragged S=2047", (2, 25, 5, 2047, 2047, 64), dict(window=1024),
          False),
         ("hymba SWA model views", (2, 25, 5, 2048, 2048, 64),
-         dict(window=1024), True))
+         dict(window=1024), True),
+        # whisper-tiny's three corners, as its model hands them over: the
+        # encoder (bidirectional, 1,500 frames: no multiple of a tile), the
+        # cross-attention of prefill (416 x 1,500) and of a decode step
+        # (Sq = 1 against the cross KV's transposed views)
+        ("whisper encoder model views", (4, 6, 6, 1500, 1500, 64),
+         dict(causal=False), True),
+        ("whisper prefill cross-attention model views",
+         (4, 6, 6, 416, 1500, 64), dict(causal=False), True),
+        ("whisper decode cross-attention model views",
+         (4, 6, 6, 1, 1500, 64), dict(causal=False), True))
     for dtype in (torch.float32, torch.bfloat16):
         tname = str(dtype).split(".")[-1]
         kind = flash_attention.instance(dtype)
@@ -3531,6 +3972,9 @@ def main() -> int:
     elapsed("phase 4: LM kernels at the families' shapes")
     family_times = lm_family_kernel_times(gen, dev, card, errs)
 
+    elapsed("phase 4: flash attention at whisper-tiny's shapes")
+    whisper_times = whisper_kernel_times(gen, dev, card, errs)
+
     elapsed("phase 4: LM kernels at hymba's training shape, with gradients")
     train_fa, train_ls = lm_training_times(lm_cfg, gen, dev, card)
     for name, rec in record.items():
@@ -3574,15 +4018,18 @@ def main() -> int:
         counters, hit_history[-1]["eval_return_norm"], card)
 
     elapsed("phase 5: channel_wm")
-    # one iteration, no evaluation episode (the fleet phase below runs the
-    # channel again, and the run must stay well inside its time limit)
+    # one iteration, no evaluation episode, episodes cut to CUT_STEPS (the
+    # fleet phase below runs the channel again, and the run must stay well
+    # inside its time limit)
     chan_iter = 1
-    rhs_calls = chan_iter * chan.n_actions * chan.n_substeps * 5
-    if rhs_calls != 20 * 26 * 5:
+    chan_steps = CUT_STEPS["channel_wm"]
+    rhs_calls = chan_iter * chan_steps * chan.n_substeps * 5
+    if rhs_calls != 5 * 26 * 5:
         raise AssertionError(f"channel episode arithmetic gives {rhs_calls}")
     chan_expected = [0, rhs_calls, rhs_calls, rhs_calls, 0, 0]
-    _, counts, wall, step = train("channel_wm", chan_iter, counters,
-                                  evaluate=False)
+    with episodes_cut():
+        _, counts, wall, step = train("channel_wm", chan_iter, counters,
+                                      evaluate=False)
     print(f"main path channel_wm: {wall:.2f} s wall, launches "
           f"{dict(zip(names, counts))} (expected "
           f"{dict(zip(names, chan_expected))}), checkpoint step {step}")
@@ -3607,8 +4054,8 @@ def main() -> int:
     # synchronous iteration of a second runner for the timings and every
     # scenario's evaluation episode
     per_rollout = {"hit": cfg.n_actions * cfg.n_substeps * 5,
-                   "chan": chan.n_actions * chan.n_substeps * 5}
-    if per_rollout != {"hit": 3250, "chan": 2600}:
+                   "chan": chan_steps * chan.n_substeps * 5}
+    if per_rollout != {"hit": 3250, "chan": 650}:
         raise AssertionError(f"fleet episode arithmetic gives {per_rollout}")
     fleet_ckpt = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
     try:
@@ -3762,6 +4209,13 @@ def main() -> int:
         for kind, n_ in ls_n.items():
             if n_:
                 by_path[f"linear_scan {kind}"][arch] = n_
+
+    elapsed("phase 5: whisper-tiny")
+    whisper = whisper_phase(counters, card)
+    by_path["flash_attention"]["whisper-tiny"] = \
+        whisper["serve"]["launches"][4]
+    by_path["flash_attention"]["whisper-tiny training"] = \
+        whisper["training"]["launches"][4]
     launches = {name: sum(p.values()) for name, p in by_path.items()}
 
     # --- 5b. where the paths' time goes (after the counts were read) ---------
@@ -3794,6 +4248,22 @@ def main() -> int:
                    "(api.decode_step)",
                    lambda: api.decode_step(params, serve_cfg, tok, caches),
                    card)
+    del params, caches, logits
+    wcfg = dataclasses.replace(lm_configs.get("whisper-tiny"),
+                               param_dtype="bfloat16")
+    params = api.init(wcfg, seed=0)
+    batch = {k: v.to(dev) for k, v in make_batch_for(
+        wcfg, 5, WHISPER_BATCH, WHISPER_PROMPT).items() if k != "labels"}
+    w_len = WHISPER_PROMPT + WHISPER_NEW
+    profile_window(f"one whisper-tiny prefill of {WHISPER_BATCH} x (1500 "
+                   f"frames, {WHISPER_PROMPT} tokens) (api.prefill)",
+                   lambda: api.prefill(params, wcfg, batch, cache_len=w_len),
+                   card)
+    logits, caches = api.prefill(params, wcfg, batch, cache_len=w_len)
+    tok = torch.argmax(logits, dim=-1)
+    profile_window(f"one whisper-tiny decode step of {WHISPER_BATCH} "
+                   f"sequences (api.decode_step)",
+                   lambda: api.decode_step(params, wcfg, tok, caches), card)
 
     # --- 6. records ----------------------------------------------------------
     elapsed("phase 6: records")
@@ -3845,6 +4315,7 @@ def main() -> int:
     # the families' main-path shapes beside hymba's
     record["flash_attention"]["extra"]["families"] = {
         k: v for k, v in family_times.items() if "rwkv6" not in k}
+    record["flash_attention"]["extra"]["whisper"] = whisper_times
     rec["extra"]["families"] = {"rwkv6-1.6b prefill": family_times[
         "rwkv6-1.6b prefill"]}
     record["linear_scan step"]["extra"] = {"families": {

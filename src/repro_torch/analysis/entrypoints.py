@@ -4,7 +4,7 @@ counterpart of `repro.analysis.entrypoints`, entry for entry).
 These are the calls whose work on the device IS the product: the solver's
 RL-interval advance, the fleet rollout, the PPO and fleet updates, the
 fused RHS, the broker's in-place push, the serving step, and the LM
-families' decode steps (rwkv6, an MoE model).  `op_audit`
+families' decode steps (rwkv6, an MoE model, the enc-dec whisper).  `op_audit`
 runs each one at a reduced (but structurally faithful) shape under
 `dispatch.Recorder` on the CPU and, with `device="cuda"`, again on the
 card under `torch.cuda.set_sync_debug_mode`.
@@ -260,18 +260,20 @@ def _build_serve_step(device: torch.device) -> Built:
 def _build_lm_decode(device: torch.device, arch: str) -> Built:
     """One served decode step of `arch`'s reduced config (bf16 weights and
     caches) after a prefill of 2 x 16 tokens: rwkv6's step scan and state
-    carry, or the MoE's routing and capacity dispatch of a group of two
-    tokens, which must stay on the device."""
+    carry, the MoE's routing and capacity dispatch of a group of two
+    tokens, or whisper's learned position and cross-attention against the
+    KV that prefill built from the frames, which must stay on the
+    device."""
     from .. import configs
-    from ..data import lm_batch
+    from ..data import make_batch_for
     from ..models import api
 
     cfg = dataclasses.replace(configs.get_reduced(arch),
                               param_dtype="bfloat16")
     params = api.init(cfg, seed=0, device=device)
-    tokens = lm_batch(0, 2, 16, cfg.vocab)["tokens"].to(device)
-    logits, caches = api.prefill(params, cfg, {"tokens": tokens},
-                                 cache_len=32)
+    batch = {k: v.to(device) for k, v in
+             make_batch_for(cfg, 0, 2, 16).items() if k != "labels"}
+    logits, caches = api.prefill(params, cfg, batch, cache_len=32)
     token = torch.argmax(logits, dim=-1)
     return Built(fn=lambda t, c: api.decode_step(params, cfg, t, c),
                  args=(token, caches))
@@ -303,6 +305,8 @@ ENTRYPOINTS: tuple[EntryPoint, ...] = (
     EntryPoint("rwkv_decode", lambda d: _build_lm_decode(d, "rwkv6-1.6b")),
     EntryPoint("moe_decode",
                lambda d: _build_lm_decode(d, "deepseek-moe-16b")),
+    EntryPoint("whisper_decode",
+               lambda d: _build_lm_decode(d, "whisper-tiny")),
 )
 
 

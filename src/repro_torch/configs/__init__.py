@@ -1,8 +1,8 @@
 """Configurations of the port (counterpart of `repro.configs`).
 
 `relexi_hit` holds the paper's HIT LES configurations.  The LM registry
-below holds every decoder-only architecture of the reference, in its
-order; the enc-dec `whisper-tiny` waits for its own slice and raises.
+below holds every architecture of the reference, in its order: the
+decoder-only families and the enc-dec `whisper-tiny` (`models.encdec`).
 `get(name)` returns the full `ArchConfig`, `get_reduced(name)` the
 smoke-test scale of the same family.
 """
@@ -22,18 +22,14 @@ _MODULES = {
     "rwkv6-1.6b": "rwkv6_1_6b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "whisper-tiny": "whisper_tiny",
     "hymba-1.5b": "hymba_1_5b",
 }
-# registered by the reference, not ported yet
-_ENCDEC = "whisper-tiny"
 
 ARCH_NAMES = tuple(_MODULES)
 
 
 def _module(name: str):
-    if name == _ENCDEC:
-        raise KeyError(f"arch {name!r} is not ported yet: it waits for the "
-                       f"enc-dec slice (models/encdec.py)")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; choose from {ARCH_NAMES}")
     return importlib.import_module(f".{_MODULES[name]}", __package__)

@@ -5,9 +5,9 @@ Zipf-ish token stream stands in, whose cursor is part of the checkpoint (a
 resumed run replays the exact same batches).  The tokens come from numpy's
 generator exactly as in the reference, so the same seed gives the same
 tokens in both packages; they are returned as int64 CPU tensors (PyTorch's
-index type).  `make_batch_for` ports the decoder-only and vision branches
-(llava's precomputed patch embeddings, float32, from the same generator);
-the enc-dec branch raises, as `models.lm` does for that architecture.
+index type).  `make_batch_for` ports all three branches: decoder-only,
+vision (llava's precomputed patch embeddings) and enc-dec (whisper's stub
+frame embeddings), the embeddings float32 and bitwise the reference's.
 """
 from __future__ import annotations
 
@@ -35,12 +35,19 @@ def lm_batch(seed: int, batch: int, seq: int, vocab: int) -> dict:
 
 
 def make_batch_for(cfg: ArchConfig, seed: int, batch: int, seq: int) -> dict:
-    """A batch shaped for `cfg`: (tokens, labels), and for llava the
-    "patches" (batch, vision_tokens, vision_dim) with the text shortened to
-    seq - vision_tokens (at least 8), so that the whole sequence is seq."""
+    """A batch shaped for `cfg`: (tokens, labels); for whisper the
+    "frames" (batch, max_source_positions, d_model), the stub audio
+    frontend's output, from a generator of their own seeded with `seed`;
+    for llava the "patches" (batch, vision_tokens, vision_dim) with the
+    text shortened to seq - vision_tokens (at least 8), so that the whole
+    sequence is seq."""
     if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: enc-dec batches are not "
-                                  f"ported")
+        out = lm_batch(seed, batch, seq, cfg.vocab)
+        out["frames"] = torch.from_numpy(
+            np.random.default_rng(seed).standard_normal(
+                (batch, cfg.max_source_positions, cfg.d_model),
+                dtype=np.float32))
+        return out
     if cfg.vision_dim:
         out = lm_batch(seed, batch, max(seq - cfg.vision_tokens, 8),
                        cfg.vocab)

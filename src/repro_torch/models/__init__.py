@@ -9,11 +9,12 @@
   blocks     norm + mixer + FFN block assembly, per-layer kinds, caches
   lm         decoder-only assembly (dense prefix, llava's projector), loss
              and training step, serving entry points, weight loading
+  encdec     whisper's encoder-decoder: encoder, cross-attention, its own
+             loss, training step and serving entry points
   api        the entry points a trainer or a server calls
 
-Every decoder-only architecture of the reference
-(`repro_torch.configs.ARCH_NAMES`) runs; the enc-dec model (`encdec`) is
-not ported yet.  Submodules are imported where they are used.
+Every architecture of the reference (`repro_torch.configs.ARCH_NAMES`)
+runs.  Submodules are imported where they are used.
 """
 from .config import ArchConfig
 

@@ -1,17 +1,19 @@
-"""The training and serving entry points (port of the decoder-only parts
-of `repro.models.api`: every registered architecture; the enc-dec whisper
-is not ported).
+"""The training and serving entry points (port of `repro.models.api`):
+one interface over the decoder-only models (`lm`) and the enc-dec whisper
+(`encdec`), dispatched on `cfg.is_encdec`.
 
 `init` and `init_caches` take `device=None`, which means the GPU, and raise
 without one unless the caller asks for the CPU (`device="cpu"`).  `loss`,
 `train_step`, `prefill` and `decode_step` run where the parameters are.
+Batches come from `data.synthetic` with the reference's keys: "tokens",
+"labels", and llava's "patches" or whisper's "frames".
 """
 from __future__ import annotations
 
 import torch
 
 from .. import optim, resolve_device
-from . import lm
+from . import encdec, lm
 from .config import ArchConfig
 
 
@@ -23,26 +25,30 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> torch.nn.Module:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.device(dev):
-        params = lm.init(gen, cfg)
+        params = (encdec if cfg.is_encdec else lm).init(gen, cfg)
     return params.to(getattr(torch, cfg.param_dtype))
 
 
 def loss(params, cfg: ArchConfig, batch: dict):
-    """batch: {"tokens", "labels", optional "patches"} -> (scalar loss,
-    metrics)."""
-    return lm.lm_loss(params, cfg, batch)
+    """batch: {"tokens", "labels", optional "mask", "patches" (llava) or
+    "frames" (whisper)} -> (scalar loss, metrics)."""
+    return (encdec if cfg.is_encdec else lm).lm_loss(params, cfg, batch)
 
 
 def train_step(params, opt_state: optim.AdamState, batch: dict,
                cfg: ArchConfig, adam_cfg: optim.AdamConfig | None = None):
     """One Adam step on `batch`, in place -> (params, opt_state, metrics)."""
-    return lm.train_step(params, opt_state, batch, cfg, adam_cfg)
+    fn = encdec.train_step if cfg.is_encdec else lm.train_step
+    return fn(params, opt_state, batch, cfg, adam_cfg)
 
 
 def prefill(params, cfg: ArchConfig, batch: dict,
             cache_len: int | None = None, cache_dtype=torch.bfloat16):
-    """batch: {"tokens": (B, S), optional "patches" (llava)} -> (last-token
-    logits (B, V), caches)."""
+    """batch: {"tokens": (B, S), optional "patches" (llava), "frames"
+    (whisper)} -> (last-token logits (B, V), caches)."""
+    if cfg.is_encdec:
+        return encdec.prefill(params, cfg, batch["frames"], batch["tokens"],
+                              cache_len=cache_len, cache_dtype=cache_dtype)
     return lm.prefill(params, cfg, batch["tokens"],
                       patches=batch.get("patches"), cache_len=cache_len,
                       cache_dtype=cache_dtype)
@@ -50,7 +56,8 @@ def prefill(params, cfg: ArchConfig, batch: dict,
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches: dict):
     """One new token (B,) against the caches -> (logits (B, V), caches)."""
-    return lm.decode_step(params, cfg, token, caches)
+    fn = encdec.decode_step if cfg.is_encdec else lm.decode_step
+    return fn(params, cfg, token, caches)
 
 
 def serve_step(params, cfg: ArchConfig, token: torch.Tensor, caches: dict):
@@ -61,5 +68,9 @@ def serve_step(params, cfg: ArchConfig, token: torch.Tensor, caches: dict):
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device=None) -> dict:
     """Empty caches of every layer: KV buffers, SSM and RWKV states, the
-    dense prefix's."""
+    dense prefix's.  An enc-dec model's caches come from `prefill` (the
+    cross KV depends on the encoder's output)."""
+    if cfg.is_encdec:
+        raise ValueError("enc-dec caches are built by prefill (cross-KV "
+                         "depends on the encoder output)")
     return lm.init_caches(cfg, batch, max_len, dtype, resolve_device(device))

@@ -1,5 +1,6 @@
 """Decoder-only LM assembly: training and serving (port of
-`repro.models.lm`, every architecture but the enc-dec whisper).
+`repro.models.lm`, every architecture but the enc-dec whisper, which is
+`models.encdec`).
 
 Layers come in groups: group size = the architecture's layer-kind period
 (gemma-2's local/global pair = 2, hymba's global-every-8 = 8, otherwise
@@ -23,7 +24,8 @@ Entry points:
     train_step(params, opt, batch, cfg)   one Adam step, in place
     prefill(params, cfg, tokens, ...)     (last-token logits, caches)
     decode_step(params, cfg, token, c)    (logits, caches)
-    greedy_generate(params, cfg, p, n)    (B, n) greedy tokens
+    greedy_generate(params, cfg, p, n)    (B, n) greedy tokens (whisper's
+                                          through `encdec`, given frames=)
     load_jax_params(params, jax_params)   carry the reference's weights over
 """
 from __future__ import annotations
@@ -65,17 +67,17 @@ def group_kinds(cfg: ArchConfig) -> list[blocks.LayerKind]:
     return [blocks.layer_kind(cfg, p + j) for j in range(group_size(cfg))]
 
 
-def _check_ported(cfg: ArchConfig) -> None:
+def _check_decoder_only(cfg: ArchConfig) -> None:
     if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: the enc-dec model is not "
-                                  f"ported")
+        raise ValueError(f"{cfg.name} is an enc-dec model: use "
+                         f"models.encdec (models.api dispatches to it)")
 
 
 # --- init -------------------------------------------------------------------------
 def init(gen: torch.Generator, cfg: ArchConfig) -> nn.ParamTree:
     """Float32 parameters drawn from `gen`, on the default device (see
     `nn.layers`); `api.init` places them and casts to `cfg.param_dtype`."""
-    _check_ported(cfg)
+    _check_decoder_only(cfg)
     params: dict = {"embed": nn.embedding_init(gen, cfg.vocab, cfg.d_model),
                     "final_norm": blocks.init_norm(cfg)}
     if not cfg.tie_embeddings:
@@ -125,9 +127,16 @@ def load_jax_params(params: nn.ParamTree, jax_params: dict) -> None:
     layout, see `jax_param_leaves`) into `params`, leaf by leaf, each cast
     to the port's dtype.  Raises unless every leaf of both trees is
     matched, with equal shapes."""
+    load_leaves(params, jax_param_leaves(jax_params, len(params["layers"])))
+
+
+def load_leaves(params: nn.ParamTree, leaves) -> None:
+    """Copy (port parameter name, numpy leaf) pairs into `params`, each
+    leaf cast to the port's dtype; raises unless every leaf and every
+    parameter is matched, with equal shapes."""
     ours = dict(params.named_parameters())
     seen = set()
-    for path, leaf in jax_param_leaves(jax_params, len(params["layers"])):
+    for path, leaf in leaves:
         if path not in ours:
             raise KeyError(f"reference leaf {path} has no counterpart")
         arr = np.asarray(leaf, dtype=np.float32)
@@ -305,7 +314,7 @@ def lm_loss(params, cfg: ArchConfig, batch: dict
     llava, "patches" (B, N, vision_dim)} -> (loss, metrics).  The loss adds
     the MoE layers' load-balance (x 0.01) and router z (x 1e-3) losses,
     summed over the layers."""
-    _check_ported(cfg)
+    _check_decoder_only(cfg)
     dev = _device(params)
     tokens, labels = batch["tokens"].to(dev), batch["labels"].to(dev)
     x = _embed_input(params, cfg, tokens, batch.get("patches"))
@@ -332,11 +341,18 @@ def train_step(params, opt_state: optim.AdamState, batch: dict,
     respect to every parameter (which are made to require grad), the
     gradient's global norm, then one Adam step in place.  Returns (params,
     opt_state, metrics), the metrics detached on the device."""
+    return adam_step(lm_loss, params, opt_state, batch, cfg, adam_cfg)
+
+
+def adam_step(loss_fn, params, opt_state: optim.AdamState, batch: dict,
+              cfg: ArchConfig, adam_cfg: optim.AdamConfig | None = None):
+    """`train_step` for any `loss_fn(params, cfg, batch) -> (loss,
+    metrics)` (the decoder-only and the enc-dec losses)."""
     adam_cfg = adam_cfg or optim.AdamConfig(lr=3e-4, grad_clip=1.0)
     plist = list(params.parameters())
     with torch.enable_grad():
         params.requires_grad_(True)
-        loss, metrics = lm_loss(params, cfg, batch)
+        loss, metrics = loss_fn(params, cfg, batch)
         grads = torch.autograd.grad(loss, plist)
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = optim.global_norm(grads)
@@ -375,18 +391,26 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches: dict
 
 @torch.no_grad()
 def greedy_generate(params, cfg: ArchConfig, prompt: torch.Tensor,
-                    n_new: int, patches: torch.Tensor | None = None
-                    ) -> torch.Tensor:
+                    n_new: int, patches: torch.Tensor | None = None,
+                    frames: torch.Tensor | None = None) -> torch.Tensor:
     """Greedy decoding: prefill the prompt (B, S) (after llava's image
-    tokens where patches are given), then n_new - 1 decode steps.  Returns
-    the (B, n_new) generated tokens (int64), on the parameters' device.
-    The caches are bf16, as in the reference."""
-    n_img = patches.shape[1] if cfg.vision_dim and patches is not None \
-        else 0
-    logits, caches = prefill(params, cfg, prompt, patches,
-                             cache_len=n_img + prompt.shape[1] + n_new)
+    tokens where patches are given; for whisper against the encoded
+    frames, through `encdec`), then n_new - 1 decode steps.  Returns the
+    (B, n_new) generated tokens (int64), on the parameters' device.  The
+    caches are bf16, as in the reference."""
+    if cfg.is_encdec:
+        from . import encdec
+        logits, caches = encdec.prefill(params, cfg, frames, prompt,
+                                        cache_len=prompt.shape[1] + n_new)
+        step = encdec.decode_step
+    else:
+        n_img = patches.shape[1] if cfg.vision_dim and patches is not None \
+            else 0
+        logits, caches = prefill(params, cfg, prompt, patches,
+                                 cache_len=n_img + prompt.shape[1] + n_new)
+        step = decode_step
     toks = [torch.argmax(logits, dim=-1)]
     for _ in range(n_new - 1):
-        logits, caches = decode_step(params, cfg, toks[-1], caches)
+        logits, caches = step(params, cfg, toks[-1], caches)
         toks.append(torch.argmax(logits, dim=-1))
     return torch.stack(toks, dim=1)

@@ -30,6 +30,7 @@ from repro_torch.analysis.kernel_audit import Launch
 from repro_torch.analysis.report import (RULES, SCHEMA_VERSION, Finding,
                                          Report)
 from repro_torch.kernels import _build
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _rules(findings):
@@ -470,6 +471,21 @@ def test_an_rl_step_copies_nothing_to_the_device(name):
     with dispatch.Recorder() as rec:
         env.step(state, action)
     assert rec.syncs == []
+
+
+def test_whisper_decode_syncs_nothing_and_copies_nothing():
+    """The `whisper_decode` entry: a served decode step of the enc-dec
+    model reads the cross-attention KV that prefill built and the learned
+    position of the cache's Python int, so the op audit finds no host
+    sync (a blocking host-to-device copy counts as one) and no float64
+    result; its module imports neither `jax` nor `repro`."""
+    entry = entrypoints.get("whisper_decode")
+    findings, meta = op_audit.audit_entry(entry)
+    assert findings == [] and meta["syncs"] == 0 and meta["ops"] > 0
+    from repro_torch.models import encdec
+    assert ast_rules.is_hot(encdec.__file__)
+    with open(encdec.__file__) as f:
+        assert ast_rules.lint_source(encdec.__file__, f.read()) == []
 
 
 def test_a_runner_iteration_copies_no_state_to_the_host(tmp_path):

@@ -35,6 +35,7 @@ from repro_torch.core import rollout as trollout
 from repro_torch.envs.base import EnvState
 from repro_torch.kernels import dg_derivative, smagorinsky, wall_model
 from repro_torch.launch import rl_train
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NAMES = ("channel_wm", "channel_wm_reduced", "channel_wm_p",
          "channel_wm_p_reduced", "channel_wm_hre", "channel_wm_hre_reduced",

@@ -22,6 +22,7 @@ from repro_torch import envs as tenvs
 from repro_torch.cfd import initial as tinitial
 from repro_torch.cfd import solver as tsolver
 from repro_torch.cfd import spectra as tspectra
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _rel_err(got, want):

@@ -30,6 +30,7 @@ from repro_torch.core import ppo as tppo
 from repro_torch.fleet import broker, multitask, scheduler
 from repro_torch.fleet.pipeline import (FleetRunner, FleetRunnerConfig,
                                         _host_record)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FLEET_NAMES = ("hit_les_reduced", "channel_wm_reduced", "burgers_reduced")
 PRODUCTION = ("hit_les_24dof", "channel_wm", "burgers_96dof")

@@ -39,6 +39,7 @@ from repro_torch.data import synthetic
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import linear_scan as ls
 from repro_torch.models import api, attention, blocks, lm, ssm
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "hymba-1.5b"
 F32_TOL = 1e-5
@@ -84,19 +85,17 @@ def _block_params(jparams, j=0):
 def test_config_and_registry_match_reference():
     """The port's hymba configs equal the reference's field by field, except
     the two impl defaults ("kernel" in the port); the registry holds every
-    reference arch but the enc-dec whisper, in the reference's order, and
-    names the slice whisper waits for (the other archs' configs:
-    `tests/test_torch_lm_families.py`)."""
-    assert configs.ARCH_NAMES == tuple(
-        n for n in jconfigs.ARCH_NAMES if n != "whisper-tiny")
+    reference arch, the enc-dec whisper too, in the reference's order (the
+    other archs' configs: `tests/test_torch_lm_families.py`,
+    `tests/test_torch_whisper.py`)."""
+    assert configs.ARCH_NAMES == jconfigs.ARCH_NAMES
     for get in ("get", "get_reduced"):
         ours = dataclasses.asdict(getattr(configs, get)(ARCH))
         theirs = dataclasses.asdict(getattr(jconfigs, get)(ARCH))
         assert ours.pop("attn_impl") == ours.pop("scan_impl") == "kernel"
         theirs.pop("attn_impl"), theirs.pop("scan_impl")
         assert ours == theirs
-    with pytest.raises(KeyError, match="enc-dec"):
-        configs.get("whisper-tiny")
+    assert configs.get("whisper-tiny").is_encdec
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get("gpt-2")
 

@@ -36,6 +36,7 @@ from repro_torch.kernels import linear_scan as ls
 from repro_torch.models import api, lm
 from torch_lm_reference import (by_port_name, cfgs, jbatch, models, np_tree,
                                 rel)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ["gemma2-27b", "starcoder2-7b", "h2o-danube-1.8b", "command-r-35b",
          "llava-next-mistral-7b", "rwkv6-1.6b", "moonshot-v1-16b-a3b",

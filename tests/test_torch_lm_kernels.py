@@ -28,6 +28,7 @@ from repro.kernels.linear_scan import linear_scan as pallas_ls
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import linear_scan as ls
 from repro_torch.kernels import ops
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = {"attention": {"float32": 2e-6, "bfloat16": 2e-2},
        "scan": {"float32": 2e-6, "bfloat16": 2e-2}}

@@ -39,6 +39,7 @@ from repro_torch.kernels import linear_scan as ls
 from repro_torch.kernels import ops
 from repro_torch.launch import train as train_cli
 from repro_torch.models import api, lm
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "hymba-1.5b"
 B, S = 2, 40                    # longer than the window of 16
@@ -346,8 +347,9 @@ def test_chunked_ce_matches_a_full_softmax():
 
 def test_token_stream_matches_reference():
     """`TokenStream` batches, cursor and state round trip equal the
-    reference's; `make_batch_for` raises for enc-dec and gives the
-    reference's vision batch (tokens, labels and llava's patches)."""
+    reference's; `make_batch_for` gives the reference's enc-dec batch
+    (whisper's frames beside the tokens) and vision batch (tokens, labels
+    and llava's patches)."""
     jcfg, pcfg = _cfgs()
     ours = synthetic.TokenStream(pcfg, 3, 17, seed=7)
     theirs = jsynthetic.TokenStream(jcfg, 3, 17, seed=7)
@@ -362,9 +364,16 @@ def test_token_stream_matches_reference():
     other.load_state_dict(ours.state_dict())
     np.testing.assert_array_equal(other.next()["tokens"].numpy(),
                                   np.asarray(theirs.next()["tokens"]))
-    with pytest.raises(NotImplementedError):
-        synthetic.make_batch_for(dataclasses.replace(pcfg, encoder_layers=2),
-                                 0, 1, 8)
+    encdec = {"encoder_layers": 2, "max_source_positions": 6}
+    ours = synthetic.make_batch_for(dataclasses.replace(pcfg, **encdec), 0,
+                                    1, 8)
+    theirs = jsynthetic.make_batch_for(dataclasses.replace(jcfg, **encdec),
+                                       0, 1, 8)
+    assert set(ours) == set(theirs) == {"tokens", "labels", "frames"}
+    assert ours["frames"].shape == (1, 6, pcfg.d_model)
+    for key in ours:
+        np.testing.assert_array_equal(ours[key].numpy(),
+                                      np.asarray(theirs[key]))
     vision = {"vision_dim": 8, "vision_tokens": 5}
     ours = synthetic.make_batch_for(dataclasses.replace(pcfg, **vision), 4,
                                     2, 20)

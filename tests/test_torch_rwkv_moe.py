@@ -45,6 +45,7 @@ from repro_torch.kernels import linear_scan as ls
 from repro_torch.kernels import ops
 from repro_torch.models import api, lm, moe, rwkv
 from torch_lm_reference import by_port_name, cfgs, jbatch, models, rel
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = 1e-5
 LOSS_TOL = 1e-6

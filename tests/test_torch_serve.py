@@ -28,6 +28,7 @@ from repro_torch.fleet import multitask
 from repro_torch.fleet.pipeline import FleetRunnerConfig
 from repro_torch.serve import (DEFAULT_BUCKETS, ControllerService,
                                RequestBatcher, bucket_for)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCENARIOS = ("hit_les_reduced", "burgers_reduced")
 SERVE_TOL = 1e-6

@@ -32,6 +32,7 @@ from repro_torch.core.orchestrator import FleetConfig
 from repro_torch.core.runner import Runner, RunnerConfig
 from repro_torch.kernels import rhs as trhs
 from repro_torch.launch import rl_train
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -180,11 +180,11 @@ In order, and any failure exits non-zero:
      reject; then, at 8 of its 32 layers (cut in process to pay for the
      LM families and whisper-tiny below), training through
      `repro_torch.launch.train` (float32 masters, bf16 compute, 2 x 4,096
-     tokens, Adam): 3 steps and a checkpoint, then `--resume` of one more,
-     finite loss and gradient norm, flash attention and the chunked scan
-     launched 2 x 8 times a
+     tokens, Adam): 3 steps and a checkpoint (its resumed step cut for
+     time), finite loss and gradient norm, flash attention and the chunked
+     scan launched 2 x 8 times a
      step (forward and remat recompute), peak device memory, and disk
-     enough for two checkpoints checked first;
+     enough for the checkpoint checked first;
      the LM families (`lm_families_phase`): rwkv6-1.6b, h2o-danube-1.8b,
      starcoder2-7b, llava-next-mistral-7b (all layers), gemma2-27b (8 of
      46), command-r-35b (4 of 40), deepseek-moe-16b and moonshot-v1-16b-a3b
@@ -218,7 +218,23 @@ In order, and any failure exits non-zero:
      1,500 frames in bf16 (24 tensor-core launches, each flash call within
      TOL_FLASH of the plain version on its inputs), then in float32 the
      loss and gradient norm within TOL_WHISPER_TRAIN_* of the plain path's,
-     with the encoder-causal control rejected; then
+     with the encoder-causal control rejected; whisper-tiny over 2 ranks
+     of the card (`mesh_phase`, one torchrun start of `mesh_rank`, gloo,
+     the LM's (data 1, model 2) mesh of `launch.mesh.make_host_mesh`,
+     every collective staged through the host and recorded): what gloo
+     does with CUDA tensors unstaged, printed; two bf16 training steps at
+     2 x 4,096 tokens through `launch.train.build_train_fn` against the
+     same two steps in one process (loss and gradient norm within
+     TOL_MESH_TRAIN_*; one step with the encoder run causal rejected), 48
+     B5 launches per rank; `greedy_generate` of 4 x (1,500 frames, 416
+     tokens) + 32 with each decode combine ("allgather", "flash"), 136 B5
+     launches per rank each, the ranks' tokens equal; whisper's float32
+     logits at batch 1 through the mesh path, each combine, within
+     TOL_WHISPER of the plain path's and of one process's (phase 3's
+     comparison over ranks; the encoder-causal control rejected); every
+     parameter's and cache leaf's local shard its spec's share; each
+     rank's peak memory and its collectives' count, bytes and seconds by
+     op; then
      profiles one RL step of each CFD path (the channel's launches per
      RHS), one HIT PPO epoch, one hymba prefill and one decode step, one
      whisper-tiny prefill and one decode step (torch.profiler) to show
@@ -914,7 +930,7 @@ def state_digests(runner) -> dict:
     return out
 
 
-def rank_worker(kind: str, out: str, ckpt: str) -> int:
+def rank_worker(kind: str, out: str, ckpt: str = "") -> int:
     """One rank under torchrun (started by `distributed_phase`): `rl_train`
     (hit_les_24dof, 16 envs, one iteration), the fleet (`FLEET_NAMES` at
     32 envs, at least 8 each, one synchronous iteration), one
@@ -925,6 +941,8 @@ def rank_worker(kind: str, out: str, ckpt: str) -> int:
     instance, the batch of every rollout they ran and state digests are
     gathered; rank 0 writes them as JSON to `out` (and the fleet's
     first-step rows to `out`.pt)."""
+    if kind == "mesh":
+        return mesh_rank(out)
     import torch
     import torch.distributed as dist
 
@@ -2053,8 +2071,9 @@ def lm_train_phase(counters: list, card: str) -> dict:
     config cut in process, `configs.get` patched for the launcher),
     training through `repro_torch.launch.train` (device None: the GPU):
     float32 masters, bf16 compute, batch 2 x 4,096 tokens, Adam (lr 3e-4,
-    clip 1.0); 3 steps and a checkpoint, then `--resume` of one more
-    step.  Each run with every count set to 0 just
+    clip 1.0); 3 steps and a checkpoint (the resumed step that followed
+    was cut for time; `tests/test_torch_mesh.py` resumes the launcher's
+    checkpoints on the CPU).  The run with every count set to 0 just
     before and read just after: per step each layer's flash attention and
     scan run twice (the forward and the remat recompute; the backward is
     the plain chunked forms'), all on the tensor-core flash instance and
@@ -2082,18 +2101,16 @@ def lm_train_phase(counters: list, card: str) -> dict:
     fa_split = flash_attention.flash_attention.instance_launches
     ls_split = linear_scan.linear_scan.instance_launches
     with tempfile.TemporaryDirectory() as ckpt:
-        # the two runs leave two checkpoints (params, m, v in float32)
-        need = 2 * 12 * trained_params
+        # the run leaves a checkpoint (params, m, v in float32)
+        need = 12 * trained_params
         free = shutil.disk_usage(ckpt).free
-        print(f"checkpoint disk: {need / 1e9:.1f} GB needed for two "
-              f"checkpoints, {free / 1e9:.1f} GB free in {ckpt}")
+        print(f"checkpoint disk: {need / 1e9:.1f} GB needed for the "
+              f"checkpoint, {free / 1e9:.1f} GB free in {ckpt}")
         if free < need + 2**30:
             raise AssertionError(f"hymba training needs {need / 1e9:.1f} GB "
                                  f"of disk for its checkpoints, "
                                  f"{free / 1e9:.1f} GB free")
-        for label, steps, extra, n_steps in (
-                ("3 steps", 3, [], 3),
-                ("--resume, 1 more step", 4, ["--resume"], 1)):
+        for label, steps, extra, n_steps in (("3 steps", 3, [], 3),):
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2828,8 +2845,9 @@ def whisper_parity() -> dict:
     label = (f"whisper-tiny full width float32, {cfg.encoder_layers} + "
              f"{cfg.n_layers} layers, prefill 1 x ({batch['frames'].shape[1]}"
              f" frames, {WHISPER_PROMPT} tokens) + 4 decode steps, logits")
-    err = parity(f"{label}: kernel path vs plain path",
-                 teacher_forced("kernel"), plain, TOL_WHISPER)
+    kernel = teacher_forced("kernel")
+    err = parity(f"{label}: kernel path vs plain path", kernel, plain,
+                 TOL_WHISPER)
     control = teacher_forced("kernel", encoder_made_causal(
         cfg.max_source_positions))
     scale = float(plain.abs().max())
@@ -2844,7 +2862,8 @@ def whisper_parity() -> dict:
     del params, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return {"err": err, "control_err": control_err, "scale": scale}
+    return {"err": err, "control_err": control_err, "scale": scale,
+            "plain": plain.cpu(), "kernel": kernel.cpu()}
 
 
 def whisper_train_step(counters: list, card: str) -> dict:
@@ -2965,6 +2984,381 @@ def whisper_phase(counters: list, card: str) -> dict:
     out["training"] = whisper_train_step(counters, card)
     print(f"  whisper-tiny training step: {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# whisper-tiny over 2 ranks on the one card (phase 5, `mesh_phase`): the
+# LM's mesh (data 1, model 2), one torchrun start through gloo, every
+# collective staged through the host (`core.collectives.StagedGroup`)
+MESH_RANKS = 2
+# two bf16 training steps, mesh against one process, relative: a split
+# contraction sums its halves in another order and rounds its bf16 output
+# once more than one process does (measured on an H100 at 700 W: 2.4e-5
+# and 1.3e-4); the control, one step with the encoder run causal, read
+# 1.3e-3 and 1.0e-2
+TOL_MESH_TRAIN_LOSS = 2e-4
+TOL_MESH_TRAIN_GRAD_NORM = 2e-3
+MESH_PROBE_ELEMS = 1024
+
+
+def gloo_probe() -> dict:
+    """What gloo does with CUDA tensors of two ranks on one card: each
+    collective DTensor issues, run on the world's gloo group as it is
+    (no staging): "ok" and whether the result is right, or the error."""
+    import torch
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    x = torch.full((MESH_PROBE_ELEMS,), float(r + 1), device="cuda")
+    total = float(n * (n + 1) // 2)
+    tries = {
+        "all_reduce": lambda: (lambda t: (dist.all_reduce(t), bool(
+            (t == total).all()))[1])(x.clone()),
+        "broadcast": lambda: (lambda t: (dist.broadcast(t, 0), bool(
+            (t == 1).all()))[1])(x.clone()),
+        "all_gather_into_tensor": lambda: (lambda o: (
+            dist.all_gather_into_tensor(o, x), bool(
+                (o.view(n, -1)[:, 0].cpu() == torch.arange(
+                    1, n + 1).float()).all()))[1])(
+            torch.empty(n * MESH_PROBE_ELEMS, device="cuda")),
+        "reduce_scatter_tensor": lambda: (lambda o: (
+            dist.reduce_scatter_tensor(o, x.repeat(n)), bool(
+                (o == total).all()))[1])(
+            torch.empty(MESH_PROBE_ELEMS, device="cuda")),
+        "all_to_all_single": lambda: (lambda o: (
+            dist.all_to_all_single(o, x), bool(True))[1])(
+            torch.empty_like(x)),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            out[name] = "ok, right" if fn() else "ok, WRONG result"
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 (the probe records refusals)
+            out[name] = f"refused: {type(e).__name__}: {str(e)[:160]}"
+        dist.barrier()
+    return out
+
+
+def mesh_rank(out: str) -> int:
+    """One rank of `mesh_phase` under torchrun: whisper-tiny at full width
+    on `launch.mesh.make_host_mesh()` (data 1, model 2), every count 0
+    just before each run and read after it:
+
+    * gloo's own collectives on CUDA tensors (`gloo_probe`), recorded;
+    * training: `launch.train.build_train_fn`, the params and Adam state
+      laid out by `specs.param_shardings` / `opt_shardings`, two bf16
+      steps of WHISPER_TRAIN tokens (TokenStream seed 0, params from seed
+      0), then one step of the control (the encoder run causal);
+    * serving: `lm.greedy_generate` of WHISPER_NEW tokens for
+      WHISPER_BATCH prompts (bf16 weights from seed 0, laid out by their
+      specs), once per decode combine;
+    * the float32 logits at batch 1 (weights from seed 1, the served
+      prompt, prefill + 4 teacher-forced steps), each combine, and the
+      control (the encoder run causal);
+    * every parameter's and cache leaf's local shard against its spec,
+      the peak memory, and the staged collectives (op, bytes, seconds).
+
+    The ranks' records are gathered; rank 0 writes them to `out` (JSON)
+    and the logits to `out`.pt."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import configs, optim
+    from repro_torch.core import collectives
+    from repro_torch.data import TokenStream, make_batch_for
+    from repro_torch.kernels import (dg_derivative, flash_attention,
+                                     linear_scan, ops, rhs, smagorinsky,
+                                     wall_model)
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs, train
+    from repro_torch.models import api, lm
+    from repro_torch.parallel import sharding as shd
+
+    t_phase = time.perf_counter()
+    mesh_lib.init_distributed()
+    result: dict = {"rank": dist.get_rank(), "backend": dist.get_backend()}
+    result["probe"] = gloo_probe()
+    mesh = mesh_lib.make_host_mesh()
+    result["mesh"] = collectives.mesh_shape(mesh)
+    counters = [rhs.fused_navier_stokes_rhs, dg_derivative.dg_derivative3,
+                smagorinsky.smagorinsky_nut, wall_model.wall_model_tau,
+                flash_attention.flash_attention, linear_scan.linear_scan]
+    rules = specs.rules_for(mesh)
+    cfg = configs.get("whisper-tiny")
+    sizes = collectives.mesh_shape(mesh)
+
+    def shard_misses(tree: dict, spec_of: dict) -> list:
+        """Leaves whose local shard is not their spec's share."""
+        misses = []
+        for name, x in tree.items():
+            if not isinstance(x, torch.Tensor):
+                continue
+            spec = spec_of[name] + (None,) * x.ndim
+            want = tuple(d // (sizes[e] if isinstance(e, str) else 1)
+                         for d, e in zip(x.shape, spec))
+            got = tuple(x.to_local().shape) if hasattr(x, "to_local") \
+                else tuple(x.shape)
+            if got != want:
+                misses.append((name, got, want))
+        return misses
+
+    def counts() -> dict:
+        return {"launches": [fn.launches for fn in counters],
+                "flash_split": dict(
+                    flash_attention.flash_attention.instance_launches)}
+
+    # training: two bf16 steps, then the control
+    adam = optim.AdamConfig(lr=3e-4, grad_clip=1.0)
+    stream = TokenStream(cfg, *WHISPER_TRAIN, seed=0)
+    batches = [stream.next() for _ in range(2)]
+    step, p_sh, o_sh = train.build_train_fn(cfg, mesh, adam)
+    _, b_sh = specs.batch_shardings(
+        cfg, configs.ShapeConfig("train", WHISPER_TRAIN[1],
+                                 WHISPER_TRAIN[0], "train"),
+        "train", mesh, rules)
+    for label, wrap, n_steps in (
+            ("train", None, 2),
+            ("control", encoder_made_causal(cfg.max_source_positions), 1)):
+        params = api.init(cfg, seed=0)
+        opt = optim.adam_init(list(params.parameters()))
+        specs.place_params(params, p_sh, mesh)
+        opt = specs.place_opt(opt, o_sh, mesh)
+        if label == "train":
+            result["param_shards"] = shard_misses(
+                dict(params.named_parameters()), p_sh)
+            torch.cuda.reset_peak_memory_stats()
+        rec = {"loss": [], "grad_norm": [], "step_s": []}
+        zero_counts(counters)
+        with patched(ops, "attention", wrap or (lambda f: f)):
+            for b in batches[:n_steps]:
+                t0 = time.perf_counter()
+                _, _, m = step(params, opt, specs.place_batch(b, b_sh, mesh))
+                rec["loss"].append(float(specs.full(m["loss"])))
+                rec["grad_norm"].append(float(specs.full(m["grad_norm"])))
+                torch.cuda.synchronize()
+                rec["step_s"].append(time.perf_counter() - t0)
+        rec.update(counts())
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        result[label] = rec
+        del params, opt, m
+
+    # serving, each decode combine
+    serve_cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    params = api.init(serve_cfg, seed=0)
+    _, ps_sh = specs.param_shardings(serve_cfg, mesh, rules)
+    specs.place_params(params, ps_sh, mesh)
+    shape = configs.ShapeConfig("serve", WHISPER_PROMPT + WHISPER_NEW,
+                                WHISPER_BATCH, "prefill")
+    _, bp_sh = specs.batch_shardings(serve_cfg, shape, "prefill", mesh, rules)
+    batch = specs.place_batch({k: v for k, v in make_batch_for(
+        serve_cfg, 5, WHISPER_BATCH, WHISPER_PROMPT).items()
+        if k != "labels"}, bp_sh, mesh)
+    _, c_sh = specs.cache_shardings(serve_cfg, shape, mesh, rules)
+    with shd.on_mesh(mesh):
+        _, caches = api.prefill(params, serve_cfg, batch,
+                                cache_len=WHISPER_PROMPT + WHISPER_NEW)
+    result["cache_shards"] = shard_misses(lm.flat_names(caches), c_sh)
+    del caches
+    result["serve"] = {}
+    for combine in ("allgather", "flash"):
+        c = dataclasses.replace(serve_cfg, decode_combine=combine)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        with shd.on_mesh(mesh):
+            toks = lm.greedy_generate(params, c, batch["tokens"],
+                                      WHISPER_NEW, frames=batch["frames"])
+        toks = specs.full(toks)
+        torch.cuda.synchronize()
+        rec = {"wall_s": time.perf_counter() - t0, **counts(),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "tokens": toks.cpu().tolist()}
+        result["serve"][combine] = rec
+    del params, batch
+
+    # float32 logits at batch 1, each combine, and the control
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params = api.init(cfg32, seed=1)
+    _, p32_sh = specs.param_shardings(cfg32, mesh, rules)
+    specs.place_params(params, p32_sh, mesh)
+    one = configs.ShapeConfig("one", WHISPER_PROMPT + 4, 1, "prefill")
+    _, b1_sh = specs.batch_shardings(cfg32, one, "prefill", mesh, rules)
+    _, t1_sh = specs.batch_shardings(cfg32, one, "decode", mesh, rules)
+    full1 = {k: v for k, v in make_batch_for(
+        cfg32, 6, 1, WHISPER_PROMPT + 4).items() if k != "labels"}
+    prompt = specs.place_batch({**full1, "tokens": full1["tokens"][
+        :, :WHISPER_PROMPT]}, b1_sh, mesh)
+    steps = [specs.place_batch({"token": full1["tokens"][:, t]}, t1_sh,
+                               mesh)["token"]
+             for t in range(WHISPER_PROMPT, WHISPER_PROMPT + 4)]
+    logits_out = {}
+    for label, combine, wrap in (
+            ("allgather", "allgather", None), ("flash", "flash", None),
+            ("control", "allgather", encoder_made_causal(
+                cfg.max_source_positions))):
+        c = dataclasses.replace(cfg32, decode_combine=combine)
+        with patched(ops, "attention", wrap or (lambda f: f)), \
+                shd.on_mesh(mesh):
+            logits, caches = api.prefill(params, c, prompt,
+                                         cache_len=WHISPER_PROMPT + 4,
+                                         cache_dtype=torch.float32)
+            got = [specs.full(logits)]
+            for tok in steps:
+                logits, caches = api.decode_step(params, c, tok, caches)
+                got.append(specs.full(logits))
+        logits_out[label] = torch.stack(got, 1).cpu()
+    del params, caches
+
+    stats: dict = {}
+    for dim, op, n_bytes, secs in collectives.collective_records(mesh):
+        s = stats.setdefault(f"{dim} {op}", [0, 0, 0.0])
+        s[0], s[1], s[2] = s[0] + 1, s[1] + n_bytes, s[2] + secs
+    result["collectives"] = stats
+    result["phase_s"] = time.perf_counter() - t_phase
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, result)
+    if dist.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump({"ranks": ranks}, f)
+        torch.save(logits_out, out + ".pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(counters: list, card: str, whisper: dict, tmp: str) -> dict:
+    """whisper-tiny over MESH_RANKS ranks on the one card (one torchrun
+    start of `mesh_rank`), held to one process: the same two bf16
+    training steps run here first (loss and grad norm within
+    TOL_MESH_TRAIN_*; the encoder run causal must be rejected), each
+    rank's flash launches exactly one process's (24 a bf16 training step,
+    136 a `greedy_generate`, all tensor-core; the other kernels none), the
+    float32 logits at batch 1 of each combine within TOL_WHISPER of the
+    plain path's and of one process's kernel path (`whisper_parity`'s;
+    the control rejected), every local shard its spec's share, and the
+    ranks' tokens equal across ranks.  Prints each rank's peak memory and
+    collectives.  Returns the readings."""
+    import torch
+
+    from repro_torch import configs, optim
+    from repro_torch.data import TokenStream
+    from repro_torch.models import api
+
+    names = [fn.__name__ for fn in counters]
+    cfg = configs.get("whisper-tiny")
+    stream = TokenStream(cfg, *WHISPER_TRAIN, seed=0)
+    params = api.init(cfg, seed=0)
+    opt = optim.adam_init(list(params.parameters()))
+    adam = optim.AdamConfig(lr=3e-4, grad_clip=1.0)
+    one = {"loss": [], "grad_norm": []}
+    for _ in range(2):
+        _, _, m = api.train_step(params, opt, stream.next(), cfg, adam)
+        one["loss"].append(float(m["loss"]))
+        one["grad_norm"].append(float(m["grad_norm"]))
+    del params, opt, m
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "mesh.json")
+    wall = torchrun(MESH_RANKS, ["mesh", out], timeout=300)
+    with open(out) as f:
+        ranks = json.load(f)["ranks"]
+    logits = torch.load(out + ".pt")
+    n_train = 2 * 2 * (cfg.encoder_layers + 2 * cfg.n_layers)
+    n_serve = whisper["serve"]["launches"][names.index("flash_attention")]
+    label = (f"whisper-tiny over {MESH_RANKS} ranks, mesh "
+             f"{ranks[0]['mesh']}")
+    print(f"{label} ({card}): one torchrun start {wall:.1f} s wall; gloo on "
+          f"CUDA tensors of ranks sharing the card, unstaged: "
+          f"{ranks[0]['probe']}")
+    for r in ranks:
+        coll = ", ".join(f"{k} {v[0]} calls {v[1]} B {v[2]:.3f} s"
+                         for k, v in sorted(r["collectives"].items()))
+        print(f"  rank {r['rank']} ({r['backend']} world, staged mesh "
+              f"groups): phase {r['phase_s']:.1f} s; training peak "
+              f"{r['train']['peak_gib']:.3f} GiB, steps "
+              f"{[round(s, 3) for s in r['train']['step_s']]} s, launches "
+              f"{dict(zip(names, r['train']['launches']))}; serving peak "
+              f"{max(v['peak_gib'] for v in r['serve'].values()):.3f} GiB, "
+              + ", ".join(f"{k} {v['wall_s']:.3f} s launches "
+                          f"{v['launches'][names.index('flash_attention')]}"
+                          for k, v in r["serve"].items())
+              + f"; collectives: {coll}")
+        want_train = [0] * len(counters)
+        want_train[names.index("flash_attention")] = n_train
+        want_serve = [0] * len(counters)
+        want_serve[names.index("flash_attention")] = n_serve
+        if r["train"]["launches"] != want_train or \
+                r["train"]["flash_split"] != {"cuda_core": 0,
+                                              "tensor_core": n_train}:
+            raise AssertionError(f"{label}: rank {r['rank']} training "
+                                 f"launches {r['train']['launches']}, "
+                                 f"expected {want_train}")
+        for combine, rec in r["serve"].items():
+            if rec["launches"] != want_serve or rec["flash_split"] != {
+                    "cuda_core": 0, "tensor_core": n_serve}:
+                raise AssertionError(f"{label}: rank {r['rank']} serving "
+                                     f"({combine}) launches "
+                                     f"{rec['launches']}, expected "
+                                     f"{want_serve}")
+        if r["param_shards"] or r["cache_shards"]:
+            raise AssertionError(f"{label}: rank {r['rank']} shards not "
+                                 f"their specs' {r['param_shards'][:3]} "
+                                 f"{r['cache_shards'][:3]}")
+    for combine in ("allgather", "flash"):
+        toks = [r["serve"][combine]["tokens"] for r in ranks]
+        if any(t != toks[0] for t in toks) or not all(
+                0 <= x < cfg.vocab for row in toks[0] for x in row):
+            raise AssertionError(f"{label}: {combine} tokens differ across "
+                                 f"ranks or out of range")
+    agree = sum(a == b for ra, rb in zip(ranks[0]["serve"]["allgather"][
+        "tokens"], ranks[0]["serve"]["flash"]["tokens"])
+        for a, b in zip(ra, rb))
+    print(f"  {label} serving: {WHISPER_BATCH} x ({WHISPER_PROMPT} tokens) +"
+          f" {WHISPER_NEW} new, all {len(ranks[0]['param_shards']) == 0} "
+          f"shards their specs'; bf16 tokens equal between the combines: "
+          f"{agree} of {WHISPER_BATCH * WHISPER_NEW}")
+    got, ctl = ranks[0]["train"], ranks[0]["control"]
+    rel = {k: max(abs(a - b) / abs(b) for a, b in zip(got[k], one[k]))
+           for k in ("loss", "grad_norm")}
+    rel_ctl = {k: abs(ctl[k][0] - one[k][0]) / abs(one[k][0])
+               for k in ("loss", "grad_norm")}
+    print(f"  {label} training, 2 bf16 steps of {WHISPER_TRAIN[0]} x "
+          f"{WHISPER_TRAIN[1]} tokens vs one process: loss {got['loss']} vs "
+          f"{one['loss']}, grad_norm {got['grad_norm']} vs "
+          f"{one['grad_norm']}: rel {rel['loss']:.3e} (tol "
+          f"{TOL_MESH_TRAIN_LOSS:g}), {rel['grad_norm']:.3e} (tol "
+          f"{TOL_MESH_TRAIN_GRAD_NORM:g}); control (the encoder run causal,"
+          f" its first step) rel {rel_ctl['loss']:.3e}, "
+          f"{rel_ctl['grad_norm']:.3e}")
+    passes = rel["loss"] <= TOL_MESH_TRAIN_LOSS and \
+        rel["grad_norm"] <= TOL_MESH_TRAIN_GRAD_NORM
+    ctl_passes = rel_ctl["loss"] <= TOL_MESH_TRAIN_LOSS or \
+        rel_ctl["grad_norm"] <= TOL_MESH_TRAIN_GRAD_NORM
+    if not passes or ctl_passes:
+        what = "fails the mesh" if not passes else "passes the control"
+        raise AssertionError(f"{label} training: the gate {what}")
+    plain, kernel = whisper["parity"]["plain"], whisper["parity"]["kernel"]
+    scale = float(plain.abs().max())
+    errs = {}
+    for key, want in (("plain path", plain), ("one process", kernel)):
+        for combine in ("allgather", "flash", "control"):
+            errs[combine, key] = float(
+                (logits[combine] - want).abs().max()) / scale
+    print(f"  {label} float32 logits at batch 1 (prefill + 4 decode steps) "
+          f"rel to max |logit| (tol {TOL_WHISPER:g}): "
+          + ", ".join(f"{c} vs {k} {e:.3e}" for (c, k), e in errs.items()))
+    for (combine, key), e in errs.items():
+        if (e <= TOL_WHISPER) == (combine == "control"):
+            raise AssertionError(f"{label}: float32 logits, {combine} vs "
+                                 f"{key} {e:.3e}")
+    return {"ranks": ranks, "one": one, "rel": rel, "rel_control": rel_ctl,
+            "logit_errs": {f"{c} vs {k}": e for (c, k), e in errs.items()},
+            "wall_s": wall,
+            "launches": sum(r["train"]["launches"][names.index(
+                "flash_attention")] + sum(v["launches"][names.index(
+                    "flash_attention")] for v in r["serve"].values())
+                for r in ranks)}
 
 
 def percentile(values: list, q: float) -> float:
@@ -4216,6 +4610,19 @@ def main() -> int:
         whisper["serve"]["launches"][4]
     by_path["flash_attention"]["whisper-tiny training"] = \
         whisper["training"]["launches"][4]
+
+    elapsed("phase 5: whisper-tiny over 2 ranks")
+    mesh_tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        t0 = time.perf_counter()
+        meshed = mesh_phase(counters, card, whisper, mesh_tmp)
+        print(f"  whisper-tiny over {MESH_RANKS} ranks: "
+              f"{time.perf_counter() - t0:.1f} s, one process's two steps "
+              f"and torchrun included")
+    finally:
+        shutil.rmtree(mesh_tmp, ignore_errors=True)
+    by_path["flash_attention"][f"whisper-tiny over {MESH_RANKS} ranks"] = \
+        meshed["launches"]
     launches = {name: sum(p.values()) for name, p in by_path.items()}
 
     # --- 5b. where the paths' time goes (after the counts were read) ---------

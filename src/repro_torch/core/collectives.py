@@ -11,7 +11,8 @@ with one rank per card, gloo otherwise (CPU tensors, or several ranks
 sharing one card, which NCCL refuses).  gloo's collectives are written for
 host memory, so `all_gather_cat`, `broadcast_`, `all_reduce_` and `roll`
 stage a CUDA tensor through the host when the group is gloo, and say so
-once in the log; nothing else falls back.  They send contiguous buffers:
+once in the log; the LM's mesh on such ranks is made of `StagedGroup`s,
+which stage every collective and record it.  They send contiguous buffers:
 gloo sends a strided view's storage, not its values.
 """
 from __future__ import annotations
@@ -21,8 +22,11 @@ import math
 import time
 
 import torch
+import torch._C._distributed_c10d as c10d
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+from ..parallel.sharding import mesh_axis_sizes
 
 log = logging.getLogger(__name__)
 _staging_logged = False
@@ -32,9 +36,7 @@ _staging_logged = False
 def mesh_shape(mesh) -> dict[str, int]:
     """{axis name: size} of a `DeviceMesh`, or of any object whose `shape`
     is such a dict (the reference's `Mesh.shape`)."""
-    if isinstance(mesh, DeviceMesh):
-        return dict(zip(mesh.mesh_dim_names, mesh.shape))
-    return dict(mesh.shape)
+    return mesh_axis_sizes(mesh)
 
 
 def axes_size(mesh, axes: tuple[str, ...]) -> int:
@@ -210,3 +212,164 @@ class ElemSplit:
         self.gather_s += time.perf_counter() - t0
         self.gather_bytes += x.element_size() * x.numel() * (self.size - 1)
         return out
+
+
+# --- a gloo group for DTensor on ranks that share a card ---------------------
+STAGED_BACKEND = "hoststage"
+
+
+class StagedGroup(dist.ProcessGroup):
+    """A process group that runs each collective through a gloo group on
+    host copies of its tensors, and records it.
+
+    Ranks that share one card cannot use NCCL, and gloo's collectives are
+    written for host memory; DTensor issues its collectives (all-gathers,
+    reduce-scatters, all-reduces, all-to-alls) through the mesh's groups,
+    so the LM's mesh on such ranks is made of these groups
+    (`launch/mesh.make_host_mesh`), and so are the flash decode combine's
+    all-reduces.  Each call copies CUDA inputs to the host, runs gloo
+    there, waits, and copies the results back into the CUDA outputs; CPU
+    tensors go to gloo as they are.  Every call appends (op, bytes,
+    seconds) to `records`: the bytes of this rank's input payload and the
+    host seconds of the whole call, staging included.  All-to-all runs as
+    an all-gather and a chunk (gloo has none for host tensors).  Those are
+    the collectives the mesh issues; any other is refused by c10d.
+    """
+
+    def __init__(self, inner, rank: int, size: int):
+        super().__init__(rank, size)
+        self._inner = inner
+        self._rank, self._size = rank, size
+        self.records: list[tuple[str, int, float]] = []
+
+    def size(self) -> int:
+        return self._size
+
+    def getBackendName(self) -> str:
+        return STAGED_BACKEND
+
+    @property
+    def group_name(self):
+        return dist.distributed_c10d._world.pg_names[self]
+
+    @staticmethod
+    def _host(t: torch.Tensor) -> torch.Tensor:
+        return (t.cpu() if t.is_cuda else t).contiguous()
+
+    @staticmethod
+    def _empty(t: torch.Tensor) -> torch.Tensor:
+        return torch.empty(t.shape, dtype=t.dtype)
+
+    @staticmethod
+    def _back(dst: torch.Tensor, src: torch.Tensor) -> None:
+        if src is not dst:
+            dst.copy_(src)
+
+    def _record(self, op: str, tensors, t0: float) -> None:
+        self.records.append((op, sum(t.numel() * t.element_size()
+                                     for t in tensors),
+                             time.perf_counter() - t0))
+
+    @staticmethod
+    def _done(result):
+        fut = torch.futures.Future()
+        fut.set_result(result)
+        return c10d._create_work_from_future(fut)
+
+    # in-place collectives: the tensors are inputs and outputs
+    def _inplace(self, op: str, call, tensors, opts):
+        t0 = time.perf_counter()
+        host = [self._host(t) for t in tensors]
+        call(host, opts).wait()
+        for t, h in zip(tensors, host):
+            self._back(t, h)
+        self._record(op, tensors, t0)
+        return self._done(tensors)
+
+    def allreduce(self, tensors, opts=c10d.AllreduceOptions()):
+        return self._inplace("all_reduce", self._inner.allreduce, tensors,
+                             opts)
+
+    def barrier(self, opts=c10d.BarrierOptions()):
+        self._inner.barrier(opts).wait()
+        return self._done([])
+
+    # out-of-place collectives
+    def all_gather_single(self, out, inp, opts=c10d.AllgatherOptions()):
+        t0 = time.perf_counter()
+        h_in, h_out = self._host(inp), self._empty(out)
+        self._inner._allgather_base(h_out, h_in, opts).wait()
+        self._back(out, h_out)
+        self._record("all_gather", [inp], t0)
+        return self._done([out])
+
+    _allgather_base = all_gather_single
+
+    def allgather_into_tensor_coalesced(self, outs, inps,
+                                        opts=c10d.AllgatherOptions()):
+        """The entry c10d's functional all-gather (DTensor's) calls."""
+        for out, inp in zip(outs, inps):
+            self.all_gather_single(out, inp, opts)
+        return self._done(outs)
+
+    def reduce_scatter_single(self, out, inp,
+                              opts=c10d.ReduceScatterOptions()):
+        t0 = time.perf_counter()
+        h_in, h_out = self._host(inp), self._empty(out)
+        self._inner._reduce_scatter_base(h_out, h_in, opts).wait()
+        self._back(out, h_out)
+        self._record("reduce_scatter", [inp], t0)
+        return self._done([out])
+
+    _reduce_scatter_base = reduce_scatter_single
+
+    def reduce_scatter_tensor_coalesced(self, outs, inps,
+                                        opts=c10d.ReduceScatterOptions()):
+        """The entry c10d's functional reduce-scatter calls."""
+        for out, inp in zip(outs, inps):
+            self.reduce_scatter_single(out, inp, opts)
+        return self._done(outs)
+
+    def all_to_all_single(self, out, inp, out_splits, in_splits,
+                          opts=c10d.AllToAllOptions()):
+        if (out_splits and len(set(out_splits)) > 1) or \
+                (in_splits and len(set(in_splits)) > 1):
+            raise NotImplementedError("uneven all-to-all splits")
+        t0 = time.perf_counter()
+        h_in = self._host(inp)
+        every = torch.empty((self._size * h_in.shape[0],) +
+                            tuple(h_in.shape[1:]), dtype=h_in.dtype)
+        self._inner._allgather_base(every, h_in, c10d.AllgatherOptions()
+                                    ).wait()
+        # rank r's block for this rank is chunk `rank` of r's input
+        mine = [blk.chunk(self._size, dim=0)[self._rank]
+                for blk in every.chunk(self._size, dim=0)]
+        self._back(out, torch.cat(mine, dim=0))
+        self._record("all_to_all", [inp], t0)
+        return self._done([out])
+
+    alltoall_base = all_to_all_single
+
+
+def _create_staged_group(store, rank: int, size: int, timeout):
+    return StagedGroup(dist.ProcessGroupGloo(store, rank, size, timeout),
+                       rank, size)
+
+
+def register_staged_backend() -> None:
+    """Make `STAGED_BACKEND` a backend name `new_group` and
+    `init_device_mesh(backend_override=...)` accept (once per process)."""
+    if STAGED_BACKEND.upper() not in dist.Backend._plugins:
+        dist.Backend.register_backend(STAGED_BACKEND, _create_staged_group,
+                                      devices=["cpu", "cuda"])
+
+
+def collective_records(mesh) -> list[tuple[str, str, int, float]]:
+    """(mesh dim, op, bytes, seconds) of every collective the staged groups
+    of `mesh` ran, in order within each dim."""
+    out = []
+    for name in mesh.mesh_dim_names:
+        group = mesh.get_group(name)
+        for rec in getattr(group, "records", ()):
+            out.append((name,) + tuple(rec))
+    return out

@@ -7,10 +7,12 @@ and its restore.  The checkpointed state (policy, optimizer, broker) is
 replicated and its shapes do not depend on the world size, so a restore
 needs two things:
 
-  * `reshard`      : make every rank of a mesh hold its first rank's copy of
-                     a state tree, by broadcast (the reference places a pytree
-                     on a new mesh with its PartitionSpecs; the port's state
-                     is replicated, so its one spec is "replicated");
+  * `reshard`      : place a state tree on a mesh: with specs (one for every
+                     leaf, or a tree of them, as the reference's
+                     PartitionSpecs), each leaf becomes a DTensor holding
+                     the spec's shard on each rank; without, every rank of
+                     the mesh holds its first rank's copy, by broadcast (the
+                     fleet's replicated state);
   * `elastic_fleet`: the fleet size to run on the current mesh.  PPO is
     on-policy, experience never outlives an iteration, so the fleet size is
     a free knob: it changes the gradient estimator's variance (paper Sec.
@@ -24,6 +26,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from ..parallel import sharding
 from . import collectives
 
 
@@ -37,13 +40,34 @@ def _leaves(tree: Any) -> list[torch.Tensor]:
     raise TypeError(f"not a tensor tree: {type(tree).__name__}")
 
 
-def reshard(tree: Any, mesh) -> Any:
-    """Place `tree` (a tensor, a module's parameters, or a nested dict of
-    them) replicated on `mesh`: every leaf becomes the mesh's first rank's,
-    in place, on each rank's own device.  Returns `tree`; without a mesh it
-    is returned untouched."""
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str) or isinstance(e, tuple) for e in x)
+
+
+def _placed(tree: Any, mesh, specs: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _placed(v, mesh, specs if _is_spec(specs) else specs[k])
+                for k, v in tree.items()}
+    return sharding.distribute(tree, specs, mesh)
+
+
+def reshard(tree: Any, mesh, specs: Any = None) -> Any:
+    """Place `tree` on `mesh`.
+
+    With `specs` (one spec for every leaf, or a nested dict of them
+    mirroring `tree`; a spec is a tuple of None / axis names per dim, as
+    `parallel.sharding` makes them), returns a new tree of DTensors: each
+    leaf, which every rank holds alike (a DTensor is redistributed), as
+    the spec's shard on each rank.  Without specs, `tree` (a tensor, a
+    module's parameters, or a nested dict of them) is placed replicated:
+    every leaf becomes the mesh's first rank's, in place, on each rank's
+    own device, and `tree` is returned.  Without a mesh `tree` is returned
+    untouched."""
     if mesh is None:
         return tree
+    if specs is not None:
+        return _placed(tree, mesh, specs)
     group = collectives.mesh_group(mesh)
     with torch.no_grad():
         for x in _leaves(tree):

@@ -10,11 +10,21 @@
   "scan"     the step-by-step recurrence (`linear_scan_sequential`)
 As in the JAX package, the two plain scan forms return o in float32 and the
 kernel returns it in q's dtype.
+
+On a device mesh the operands are DTensors (`parallel.sharding`), and the
+kernel runs under `local_map` on each rank's local batch rows and heads
+(`sharding.local_map_roles`): attention's q, k and v keep a shard of
+their batch or head dim, and any other layout (a sequence shard, q's
+heads split where the KV heads cannot be) is replicated first.  The
+scan's operands have their heads flattened into the batch, so the models
+call it inside their own shard-local function (`models/ssm.py`,
+`models/rwkv.py`).
 """
 from __future__ import annotations
 
 import torch
 
+from ..parallel.sharding import Roles, local_map_roles, mesh_of
 from . import flash_attention as fa
 from . import linear_scan as ls
 
@@ -25,6 +35,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               impl: str = "kernel", block_k: int = 1024) -> torch.Tensor:
     """GQA attention, q (B, Hq, Sq, D), kv (B, Hkv, Skv, D) -> (B, Hq, Sq, D)."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if mesh_of(q, k, v) is not None:
+        roles = Roles(batch=0, heads=1)
+        return local_map_roles(
+            lambda q_, k_, v_: (attention(q_, k_, v_, impl=impl,
+                                          block_k=block_k, **kw),),
+            (q, k, v), (roles, roles, roles), (roles,))[0]
     if impl == "kernel":
         return fa.flash_attention(q, k, v, **kw)
     if impl == "chunked":

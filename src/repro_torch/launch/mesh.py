@@ -24,6 +24,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from .. import resolve_device
+from ..core import collectives
 
 log = logging.getLogger(__name__)
 
@@ -84,13 +85,25 @@ def init_distributed(*, init_method: str | None = None,
     return True
 
 
-def make_host_mesh(*, device: str | torch.device | None = None
-                   ) -> DeviceMesh:
+def make_host_mesh(*, device: str | torch.device | None = None,
+                   shape: tuple[int, int] | None = None) -> DeviceMesh:
     """Every rank as a (data, model) mesh, split by `_split_data_model`
-    (needs `init_distributed` first)."""
-    data, model = _split_data_model(dist.get_world_size())
+    unless `shape` gives it (needs `init_distributed` first): the LM's
+    mesh.  On a gloo world (ranks that share a card, or the CPU) its
+    groups are `core.collectives.StagedGroup`s, which stage DTensor's
+    collectives through the host and record them."""
+    n = dist.get_world_size()
+    data, model = shape or _split_data_model(n)
+    if data * model != n:
+        raise ValueError(f"mesh {data} x {model} for {n} ranks")
+    override = None
+    if dist.get_backend() == "gloo":
+        collectives.register_staged_backend()
+        override = {"data": collectives.STAGED_BACKEND,
+                    "model": collectives.STAGED_BACKEND}
     return init_device_mesh(resolve_device(device).type, (data, model),
-                            mesh_dim_names=("data", "model"))
+                            mesh_dim_names=("data", "model"),
+                            backend_override=override)
 
 
 def make_fleet_mesh(*, model: int = 1,

@@ -29,6 +29,34 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> torch.nn.Module:
     return params.to(getattr(torch, cfg.param_dtype))
 
 
+def param_axes(cfg: ArchConfig) -> dict:
+    """{parameter name: logical axes} (see `parallel.sharding`)."""
+    return (encdec if cfg.is_encdec else lm).param_axes(cfg)
+
+
+def abstract_params(cfg: ArchConfig) -> torch.nn.Module:
+    """The parameters on the meta device: shapes and `cfg.param_dtype`, no
+    storage (the reference's `jax.eval_shape` of `init`)."""
+    gen = torch.Generator().manual_seed(0)
+    with torch.device("meta"):
+        params = (encdec if cfg.is_encdec else lm).init(gen, cfg)
+    return params.to(getattr(torch, cfg.param_dtype))
+
+
+def cache_axes(cfg: ArchConfig) -> dict:
+    """{cache leaf name: logical axes}, named as `lm.flat_names` of the
+    caches (`init_caches`, or an enc-dec model's `prefill`)."""
+    return (encdec if cfg.is_encdec else lm).cache_axes(cfg)
+
+
+def abstract_caches(cfg: ArchConfig, batch: int, max_len: int,
+                    dtype=torch.bfloat16) -> dict:
+    """The decode caches on the meta device (no storage)."""
+    if cfg.is_encdec:
+        return encdec.abstract_caches(cfg, batch, max_len, dtype)
+    return lm.init_caches(cfg, batch, max_len, dtype, torch.device("meta"))
+
+
 def loss(params, cfg: ArchConfig, batch: dict):
     """batch: {"tokens", "labels", optional "mask", "patches" (llava) or
     "frames" (whisper)} -> (scalar loss, metrics)."""

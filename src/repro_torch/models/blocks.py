@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import nn
+from ..parallel import sharding
 from . import attention, moe, rwkv, ssm
 from .config import ArchConfig
 
@@ -60,6 +61,21 @@ def init_ffn(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind) -> dict:
     return p
 
 
+def ffn_axes(cfg: ArchConfig, kind: LayerKind) -> dict:
+    if kind.ffn == "moe":
+        return moe.param_axes(cfg)
+    if kind.ffn == "rwkv_cmix":
+        return rwkv.channel_mix_axes(cfg)
+
+    def wb(ax):
+        return {"w": ax, "b": (ax[-1],)} if cfg.mlp_bias else {"w": ax}
+
+    p = {"wi": wb(("embed", "mlp")), "wo": wb(("mlp", "embed"))}
+    if kind.ffn in ("swiglu", "geglu"):
+        p["wg"] = wb(("embed", "mlp"))
+    return p
+
+
 def apply_ffn(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor,
               state: torch.Tensor | None = None):
     """-> (out, aux, new_state_or_None): aux the MoE's (2,) losses (None
@@ -78,6 +94,7 @@ def apply_ffn(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor,
         h = F.gelu(nn.dense(p["wg"], x, dtype=x.dtype), approximate="tanh") * h
     else:  # gelu_mlp
         h = F.gelu(h, approximate="tanh")
+    h = sharding.constrain(h, "batch", None, "mlp")
     return nn.dense(p["wo"], h, dtype=x.dtype), None, None
 
 
@@ -88,6 +105,12 @@ def init_norm(cfg: ArchConfig) -> dict:
     if cfg.norm == "layernorm_nobias":  # command-r
         return nn.layernorm_init(cfg.d_model, bias=False)
     return nn.rmsnorm_init(cfg.d_model)
+
+
+def norm_axes(cfg: ArchConfig) -> dict:
+    if cfg.norm == "layernorm":
+        return {"scale": ("embed",), "bias": ("embed",)}
+    return {"scale": ("embed",)}
 
 
 def apply_norm(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -114,6 +137,33 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind) -> dict:
         p["post_norm1"] = init_norm(cfg)
         p["post_norm2"] = init_norm(cfg)
     return p
+
+
+def block_axes(cfg: ArchConfig, kind: LayerKind) -> dict:
+    """Logical axes of `init_block`'s parameters."""
+    ax: dict = {"norm1": norm_axes(cfg), "ffn": ffn_axes(cfg, kind)}
+    if cfg.mixer == "rwkv":
+        ax["mixer"] = rwkv.time_mix_axes(cfg)
+    elif cfg.mixer == "attn+mamba":
+        ax["mixer"] = {"attn": attention.param_axes(cfg),
+                       "ssm": ssm.param_axes(cfg)}
+    else:
+        ax["mixer"] = attention.param_axes(cfg)
+    if not cfg.parallel_block:
+        ax["norm2"] = norm_axes(cfg)
+    if cfg.post_norms:
+        ax["post_norm1"] = norm_axes(cfg)
+        ax["post_norm2"] = norm_axes(cfg)
+    return ax
+
+
+def block_cache_axes(cfg: ArchConfig) -> dict:
+    if cfg.mixer == "rwkv":
+        return {"mixer": rwkv.state_axes()}
+    if cfg.mixer == "attn+mamba":
+        return {"mixer": {"attn": attention.cache_axes(),
+                          "ssm": ssm.state_axes()}}
+    return {"mixer": attention.cache_axes()}
 
 
 def init_block_cache(cfg: ArchConfig, kind: LayerKind, batch: int,
@@ -156,7 +206,8 @@ def _mix(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor, mode: str,
             s_out, s_state = ssm.apply_seq(p["ssm"], cfg, x, None)
         else:
             a_out, a_cache = attention.decode_attention(
-                p["attn"], cfg, x, ca["attn"], window=kind.window)
+                p["attn"], cfg, x, ca["attn"], window=kind.window,
+                combine=cfg.decode_combine)
             s_out, s_state = ssm.apply_step(p["ssm"], cfg, x, ca["ssm"])
         return 0.5 * (a_out + s_out), {"attn": a_cache, "ssm": s_state}
 
@@ -164,7 +215,8 @@ def _mix(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor, mode: str,
         return attention.full_attention(p, cfg, x, window=kind.window), None
     if mode == "prefill":
         return attention.prefill_attention(p, cfg, x, ca, window=kind.window)
-    return attention.decode_attention(p, cfg, x, ca, window=kind.window)
+    return attention.decode_attention(p, cfg, x, ca, window=kind.window,
+                                      combine=cfg.decode_combine)
 
 
 def apply_block(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor,
@@ -179,14 +231,14 @@ def apply_block(p, cfg: ArchConfig, kind: LayerKind, x: torch.Tensor,
         return x, aux, None if m_cache is None else {"mixer": m_cache}
     if cfg.post_norms:
         m_out = apply_norm(p["post_norm1"], cfg, m_out)
-    x = x + m_out
+    x = sharding.constrain(x + m_out, "batch", "act_seq", None)
     shift_c = cache["mixer"]["shift_c"] if cache and cfg.mixer == "rwkv" \
         else None
     f_out, aux, f_state = apply_ffn(p["ffn"], cfg, kind,
                                     apply_norm(p["norm2"], cfg, x), shift_c)
     if cfg.post_norms:
         f_out = apply_norm(p["post_norm2"], cfg, f_out)
-    x = x + f_out
+    x = sharding.constrain(x + f_out, "batch", "act_seq", None)
     if m_cache is None:
         return x, aux, None
     if f_state is not None:  # rwkv: the channel mix's shift

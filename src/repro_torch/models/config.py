@@ -6,9 +6,9 @@ Two defaults differ: `attn_impl` and `scan_impl` are "kernel", which runs
 the CUDA kernel on a CUDA tensor and its plain PyTorch version on a CPU
 tensor; "chunked"/"naive" and "chunked"/"scan" select the plain forms on
 any device.  Training reads `remat` (one checkpoint per layer group) and
-`loss_chunk`; the JAX-only fields (remat_policy, scan_layers,
-decode_combine, unroll_scans, ...) are kept so that configs stay
-comparable, and the port does not read them.
+`loss_chunk`, decode `decode_combine` (on a device mesh); the JAX-only
+fields (remat_policy, scan_layers, unroll_scans, ...) are kept so that
+configs stay comparable, and the port does not read them.
 """
 from __future__ import annotations
 

@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import nn, optim
 from ..kernels import ops as kops
+from ..parallel import sharding
 from . import attention, blocks, lm
 from .config import ArchConfig
 
@@ -89,6 +90,48 @@ def init(gen: torch.Generator, cfg: ArchConfig) -> nn.ParamTree:
     })
 
 
+def param_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of every parameter, keyed by its name in `init`'s tree
+    (the reference's stacked layer axis dropped)."""
+    kind = _kind(cfg)
+    dec = dict(blocks.block_axes(cfg, kind), xattn=attention.param_axes(cfg),
+               norm_x=blocks.norm_axes(cfg))
+    return lm.flat_names({
+        "enc_pos": {"table": (None, "embed")},
+        "encoder": [blocks.block_axes(cfg, kind)
+                    for _ in range(cfg.encoder_layers)],
+        "enc_final_norm": blocks.norm_axes(cfg),
+        "embed": {"table": ("vocab", "embed")},
+        "dec_pos": {"table": (None, "embed")},
+        "decoder": [dec for _ in range(cfg.n_layers)],
+        "final_norm": blocks.norm_axes(cfg),
+    })
+
+
+def cache_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of the caches `prefill` builds, keyed as
+    `lm.flat_names` of them."""
+    return lm.flat_names({
+        "self": [attention.cache_axes() for _ in range(cfg.n_layers)],
+        "cross": [{"k": ("batch", "kv_heads", None, None),
+                   "v": ("batch", "kv_heads", None, None)}
+                  for _ in range(cfg.n_layers)]})
+
+
+def abstract_caches(cfg: ArchConfig, batch: int, max_len: int,
+                    dtype=torch.bfloat16, device="meta") -> dict:
+    """The caches `prefill` builds, as empty tensors on `device` (the meta
+    device by default: shapes only)."""
+    cross = (batch, cfg.kv_heads, cfg.max_source_positions, cfg.hd)
+    return {
+        "self": [attention.init_cache(cfg, batch, max_len, window=None,
+                                      dtype=dtype, device=device)
+                 for _ in range(cfg.n_layers)],
+        "cross": [{"k": torch.empty(cross, dtype=dtype, device=device),
+                   "v": torch.empty(cross, dtype=dtype, device=device)}
+                  for _ in range(cfg.n_layers)]}
+
+
 def jax_param_leaves(jax_params: dict):
     """(port parameter name, leaf) for every leaf of a tree in the
     reference's `encdec.init` layout (its params or a gradient of them):
@@ -126,7 +169,7 @@ def _encoder_block(p_l, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = x + attention._out(p_l["mixer"], cfg, o)
     h2 = blocks.apply_norm(p_l["norm2"], cfg, x)
     f, _, _ = blocks.apply_ffn(p_l["ffn"], cfg, _kind(cfg), h2)
-    return x + f
+    return sharding.constrain(x + f, "batch", "act_seq", None)
 
 
 def encode(params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
@@ -135,6 +178,7 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
     dt = _dtype(cfg)
     s = frames.shape[1]
     x = frames.to(_device(params), dt) + params["enc_pos"]["table"][:s].to(dt)
+    x = sharding.constrain(x, "batch", "act_seq", None)
     for p_l in params["encoder"]:
         x = (checkpoint(_encoder_block, p_l, cfg, x, use_reentrant=False)
              if _remat(cfg) else _encoder_block(p_l, cfg, x))
@@ -145,12 +189,12 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
 def _cross_kv(p, cfg: ArchConfig, enc: torch.Tensor) -> dict:
     """The cross-attention K and V of one decoder layer: (B, Hkv, S_src,
     hd) views, in the encoder states' dtype."""
-    b, s, _ = enc.shape
-    k = nn.dense(p["wk"], enc, dtype=enc.dtype).reshape(b, s, cfg.kv_heads,
-                                                        cfg.hd)
-    v = nn.dense(p["wv"], enc, dtype=enc.dtype).reshape(b, s, cfg.kv_heads,
-                                                        cfg.hd)
-    return {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
+    heads = (cfg.kv_heads, cfg.hd)
+    k = sharding.unflatten(nn.dense(p["wk"], enc, dtype=enc.dtype), 2, heads)
+    v = sharding.unflatten(nn.dense(p["wv"], enc, dtype=enc.dtype), 2, heads)
+    ax = ("batch", "kv_heads", None, None)
+    return {"k": sharding.constrain(k.transpose(1, 2), *ax),
+            "v": sharding.constrain(v.transpose(1, 2), *ax)}
 
 
 def cross_kv(params, cfg: ArchConfig, enc: torch.Tensor) -> list[dict]:
@@ -160,9 +204,8 @@ def cross_kv(params, cfg: ArchConfig, enc: torch.Tensor) -> list[dict]:
 
 def _cross_attend(p, cfg: ArchConfig, x: torch.Tensor, kv: dict
                   ) -> torch.Tensor:
-    b, s, _ = x.shape
-    q = nn.dense(p["wq"], x, dtype=x.dtype).reshape(b, s, cfg.n_heads,
-                                                    cfg.hd)
+    q = sharding.unflatten(nn.dense(p["wq"], x, dtype=x.dtype), 2,
+                           (cfg.n_heads, cfg.hd))
     o = kops.attention(q.transpose(1, 2), kv["k"].to(x.dtype),
                        kv["v"].to(x.dtype), causal=False, window=None,
                        softcap=None, impl=cfg.attn_impl,
@@ -182,14 +225,15 @@ def _decoder_block(p_l, cfg: ArchConfig, x: torch.Tensor, mode: str,
         a, new_self = attention.prefill_attention(p_l["mixer"], cfg, h,
                                                   self_cache, window=None)
     else:
-        a, new_self = attention.decode_attention(p_l["mixer"], cfg, h,
-                                                 self_cache, window=None)
+        a, new_self = attention.decode_attention(
+            p_l["mixer"], cfg, h, self_cache, window=None,
+            combine=cfg.decode_combine)
     x = x + a
     hx = blocks.apply_norm(p_l["norm_x"], cfg, x)
     x = x + _cross_attend(p_l["xattn"], cfg, hx, cross)
     h2 = blocks.apply_norm(p_l["norm2"], cfg, x)
     f, _, _ = blocks.apply_ffn(p_l["ffn"], cfg, _kind(cfg), h2)
-    return x + f, new_self
+    return sharding.constrain(x + f, "batch", "act_seq", None), new_self
 
 
 def _train_layer(p_l, cfg: ArchConfig, x: torch.Tensor, cross: dict
@@ -211,7 +255,8 @@ def decode_hidden(params, cfg: ArchConfig, tokens: torch.Tensor, start: int,
                   caches: dict, mode: str) -> tuple[torch.Tensor, dict | None]:
     """tokens (B, T) at positions start .. start + T - 1 through the
     decoder -> (hidden (B, T, D), new caches; None in train mode)."""
-    x = _embed(params, cfg, tokens, start)
+    x = sharding.constrain(_embed(params, cfg, tokens, start),
+                           "batch", "act_seq", None)
     new_self = []
     for i, p_l in enumerate(params["decoder"]):
         cross = caches["cross"][i]

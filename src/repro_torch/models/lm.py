@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import nn, optim
+from ..parallel import sharding
 from . import blocks
 from .config import ArchConfig
 
@@ -97,6 +98,56 @@ def init(gen: torch.Generator, cfg: ArchConfig) -> nn.ParamTree:
             "w1": nn.dense_init(gen, cfg.vision_dim, cfg.d_model),
             "w2": nn.dense_init(gen, cfg.d_model, cfg.d_model)}
     return nn.ParamTree(params)
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of every parameter, keyed by its name in `init`'s tree
+    (`named_parameters()`); the reference's stacked group axis has no
+    counterpart, each group being a tree of its own."""
+    kinds = group_kinds(cfg)
+    ax: dict = {"embed": {"table": ("vocab", "embed")},
+                "final_norm": blocks.norm_axes(cfg)}
+    if not cfg.tie_embeddings:
+        ax["head"] = {"w": ("embed", "vocab")}
+    if n_prefix(cfg):
+        ax["prefix"] = [blocks.block_axes(cfg, blocks.layer_kind(cfg, i))
+                        for i in range(n_prefix(cfg))]
+    ax["layers"] = [{f"b{j}": blocks.block_axes(cfg, kind)
+                     for j, kind in enumerate(kinds)}
+                    for _ in range(n_groups(cfg))]
+    if cfg.vision_dim:
+        ax["projector"] = {"w1": {"w": (None, "embed"), "b": ("embed",)},
+                           "w2": {"w": ("embed", "embed"), "b": ("embed",)}}
+    return flat_names(ax)
+
+
+def cache_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of every cache leaf, keyed as `flat_names` of
+    `init_caches`' tree."""
+    kinds = group_kinds(cfg)
+    ax: dict = {"layers": [{f"b{j}": blocks.block_cache_axes(cfg)
+                            for j in range(len(kinds))}
+                           for _ in range(n_groups(cfg))]}
+    if n_prefix(cfg):
+        ax["prefix"] = [blocks.block_cache_axes(cfg)
+                        for _ in range(n_prefix(cfg))]
+    return flat_names(ax)
+
+
+def flat_names(tree, prefix: str = "") -> dict:
+    """{dotted path: leaf} of a nested dict/list tree (the names
+    `nn.ParamTree.named_parameters()` gives); a leaf is a tensor, a
+    logical-axes tuple, None or a Python number."""
+    out: dict = {}
+    if isinstance(tree, dict):
+        for key, val in tree.items():
+            out.update(flat_names(val, f"{prefix}{key}."))
+        return out
+    if isinstance(tree, list):
+        for i, val in enumerate(tree):
+            out.update(flat_names(val, f"{prefix}{i}."))
+        return out
+    return {prefix[:-1]: tree}
 
 
 def jax_param_leaves(jax_params: dict, n_groups: int):
@@ -225,6 +276,7 @@ def forward_hidden(params, cfg: ArchConfig, x: torch.Tensor,
     MoE losses (2,) (None without an MoE layer), the caches None in train.
     With `cfg.remat`, each group in train mode keeps only its input for
     the backward pass and runs again there."""
+    x = sharding.constrain(x, "batch", "act_seq", None)
     aux = None
     new_prefix = []
     for i in range(n_prefix(cfg)):
@@ -263,7 +315,8 @@ def logits_for(params, cfg: ArchConfig, hidden: torch.Tensor
     h = blocks.apply_norm(params["final_norm"], cfg, hidden)
     w = (params["embed"]["table"].T if cfg.tie_embeddings
          else params["head"]["w"])
-    logits = (h @ w.to(h.dtype)).float()
+    logits = sharding.constrain((h @ w.to(h.dtype)).float(),
+                                "batch", None, "vocab")
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits

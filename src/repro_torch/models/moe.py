@@ -15,8 +15,14 @@ einsums; here the same slots are index gathers: each kept (token, choice)
 pair owns slot `expert * C + position`, each slot reads its token's row
 (a zero row where no token came), and each token gathers its choices'
 expert outputs back, weighted by their gates.  Routing stays on the
-device (no host read, no loop over tokens).  The reference's sharding
-constraints (expert parallelism) have no counterpart on one device.
+device (no host read, no loop over tokens).
+
+On a device mesh the reference's constraints lay the groups out over
+"batch" and the slots over "experts" (expert parallelism).  The index
+plumbing has no DTensor rule, so it runs under `local_map` on each rank's
+groups (`_fill_slots`, `_read_slots`), and so does the experts' SwiGLU
+(`_expert_ffn`, each rank its experts, the weights' d_model shard
+gathered: DTensor's einsum gets the backward's views wrong there).
 
 `apply` = `route` + `experts`: the router (float32 logits, softmax, top-k,
 renormalised gates where `norm_topk`, the Switch load-balance loss and
@@ -31,6 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import nn
+from ..parallel import sharding
+from ..parallel.sharding import Roles, local_map_roles
 from .config import ArchConfig
 
 
@@ -61,6 +69,22 @@ def init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return p
 
 
+def param_axes(cfg: ArchConfig) -> dict:
+    ax = {
+        "router": {"w": ("embed", None)},
+        "wg": ("experts", "embed", "mlp"),
+        "wi": ("experts", "embed", "mlp"),
+        "wo": ("experts", "mlp", "embed"),
+    }
+    if cfg.n_shared_experts:
+        ax["shared"] = {
+            "wg": {"w": ("embed", "mlp")},
+            "wi": {"w": ("embed", "mlp")},
+            "wo": {"w": ("mlp", "embed")},
+        }
+    return ax
+
+
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     """int64 one-hot of idx over n classes, by comparison (`F.one_hot`
     reads the indices' range back to the host on the CPU)."""
@@ -75,7 +99,8 @@ def _groups(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     if tokens % group:
         raise ValueError(f"{tokens} tokens do not split into MoE groups of "
                          f"{group}")
-    return x.reshape(tokens // group, group, d)
+    return sharding.constrain(x.reshape(tokens // group, group, d),
+                              "batch", None, None)
 
 
 def _route(p, cfg: ArchConfig, x: torch.Tensor
@@ -120,6 +145,48 @@ def _dispatch(cfg: ArchConfig, idx: torch.Tensor, group_size: int
     return torch.stack(slots, dim=-1), torch.stack(keeps, dim=-1)
 
 
+def _fill_slots(cfg: ArchConfig, xg: torch.Tensor, idx: torch.Tensor):
+    """Groups xg (G, T, D) and their choices idx (G, T, k) -> (the rows of
+    every expert slot (G, E C, D), zero where no token came; each choice's
+    slot (G, T, k))."""
+    n_g, t, d = xg.shape
+    e, cap = cfg.n_experts, _capacity(t, cfg)
+    slot, _ = _dispatch(cfg, idx, t)
+    rows = torch.arange(n_g, device=xg.device)[:, None]
+    # the token that fills each slot (t, the zero row, where none does);
+    # dropped choices all land in the discarded column e * cap
+    src = torch.full((n_g, e * cap + 1), t, dtype=torch.int64,
+                     device=xg.device)
+    tok = torch.arange(t, device=xg.device)[None, :, None].expand_as(slot)
+    src.scatter_(1, slot.reshape(n_g, -1), tok.reshape(n_g, -1))
+    zero = torch.zeros((n_g, 1, d), dtype=xg.dtype, device=xg.device)
+    return torch.cat([xg, zero], dim=1)[rows, src[:, :e * cap]], slot
+
+
+def _expert_ffn(xe: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
+                wo: torch.Tensor):
+    """The routed experts' SwiGLU on their slots: xe (G, E, C, D) ->
+    (G, E, C, D), in xe's dtype."""
+    dt = xe.dtype
+    h = torch.einsum("gecd,edf->gecf", xe, wg.to(dt))
+    u = torch.einsum("gecd,edf->gecf", xe, wi.to(dt))
+    return (torch.einsum("gecf,efd->gecd", F.silu(h) * u, wo.to(dt)),)
+
+
+def _read_slots(ye: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor):
+    """Each token's choices back from the expert outputs ye (G, E, C, D),
+    weighted by their gates (a dropped choice reads zero) -> (G, T, D)."""
+    n_g, e, cap, d = ye.shape
+    t = slot.shape[1]
+    dt = ye.dtype
+    rows = torch.arange(n_g, device=ye.device)[:, None]
+    zero = torch.zeros((n_g, 1, d), dtype=dt, device=ye.device)
+    ye = torch.cat([ye.reshape(n_g, e * cap, d), zero], dim=1)
+    picked = ye[rows, slot.reshape(n_g, -1)].reshape(n_g, t, -1, d)
+    out = torch.sum(gates.to(dt).float()[..., None] * picked.float(), dim=2)
+    return (out.to(dt),)
+
+
 def experts(p, cfg: ArchConfig, x: torch.Tensor, gates: torch.Tensor,
             idx: torch.Tensor) -> torch.Tensor:
     """The routed and shared experts for given routing: x (B, S, D), gates
@@ -127,28 +194,24 @@ def experts(p, cfg: ArchConfig, x: torch.Tensor, gates: torch.Tensor,
     xg = _groups(cfg, x)
     n_g, t, d = xg.shape
     e, cap = cfg.n_experts, _capacity(t, cfg)
-    slot, _ = _dispatch(cfg, idx, t)
-    rows = torch.arange(n_g, device=x.device)[:, None]
-    # the token that fills each slot (t, the zero row, where none does);
-    # dropped choices all land in the discarded column e * cap
-    src = torch.full((n_g, e * cap + 1), t, dtype=torch.int64,
-                     device=x.device)
-    tok = torch.arange(t, device=x.device)[None, :, None].expand_as(slot)
-    src.scatter_(1, slot.reshape(n_g, -1), tok.reshape(n_g, -1))
-    zero = torch.zeros((n_g, 1, d), dtype=x.dtype, device=x.device)
-    xe = torch.cat([xg, zero], dim=1)[rows, src[:, :e * cap]]
-    xe = xe.reshape(n_g, e, cap, d)
-    dt = x.dtype
-    h = torch.einsum("gecd,edf->gecf", xe, p["wg"].to(dt))
-    u = torch.einsum("gecd,edf->gecf", xe, p["wi"].to(dt))
-    ye = torch.einsum("gecf,efd->gecd", F.silu(h) * u, p["wo"].to(dt))
-    # each token's choices back, weighted by their gates (dropped: zero)
-    ye = torch.cat([ye.reshape(n_g, e * cap, d), zero], dim=1)
-    picked = ye[rows, slot.reshape(n_g, -1)].reshape(n_g, t, -1, d)
-    out = torch.sum(gates.to(dt).float()[..., None] * picked.float(), dim=2)
-    out = out.to(dt).reshape(x.shape)
+    # the slot plumbing is per group: on a mesh each rank fills and reads
+    # its own groups' slots (`local_map`), the experts run sharded
+    g_rows = Roles(0)
+    xe, slot = local_map_roles(lambda *a: _fill_slots(cfg, *a), (xg, idx),
+                               (g_rows, g_rows), (g_rows, g_rows))
+    xe = sharding.constrain(xe.reshape(n_g, e, cap, d),
+                            "batch", "experts", None, None)
+    # each rank runs its groups through its experts (expert parallel)
+    experts_ax, weights_ax = Roles(0, 1), Roles(None, 0)
+    ye, = local_map_roles(_expert_ffn, (xe, p["wg"], p["wi"], p["wo"]),
+                          (experts_ax, weights_ax, weights_ax, weights_ax),
+                          (experts_ax,))
+    ye = sharding.constrain(ye, "batch", "experts", None, None)
+    out, = local_map_roles(_read_slots, (ye, slot, gates),
+                           (g_rows, g_rows, g_rows), (g_rows,))
+    out = out.reshape(x.shape)
     if cfg.n_shared_experts:
-        sh = p["shared"]
+        sh, dt = p["shared"], x.dtype
         hs = F.silu(nn.dense(sh["wg"], x, dtype=dt)) * nn.dense(
             sh["wi"], x, dtype=dt)
         out = out + nn.dense(sh["wo"], hs, dtype=dt)

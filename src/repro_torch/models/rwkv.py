@@ -22,6 +22,9 @@ Dtypes follow the reference: the mixes and the decay are float32 (JAX
 promotes x against the float32 lora products), r, k, v and the gate keep
 x's dtype, w is float32, the WKV state float32 (B, H, hd, hd).  The decode
 carry is {wkv state, time-mix shift (B, D), channel-mix shift (B, D)}.
+
+On a device mesh the WKV recurrence and its group norm (`_wkv`) run under
+`local_map` on each rank's batch rows and whole heads, as the SSM's scan.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ import torch.nn.functional as F
 
 from .. import nn
 from ..kernels import ops as kops
+from ..parallel import sharding
+from ..parallel.sharding import Roles, local_map_roles
 from .config import ArchConfig
 
 _MIX_KEYS = ("r", "k", "v", "w", "g")
@@ -76,15 +81,53 @@ def init_channel_mix(gen: torch.Generator, cfg: ArchConfig) -> dict:
     }
 
 
+def time_mix_axes(cfg: ArchConfig) -> dict:
+    return {
+        "mix_base": (None, "embed"),
+        "mix_lora_a": {"w": ("embed", None)},
+        "mix_lora_b": (None, None, "embed"),
+        "wr": {"w": ("embed", "heads")},
+        "wk": {"w": ("embed", "heads")},
+        "wv": {"w": ("embed", "heads")},
+        "wg": {"w": ("embed", "heads")},
+        "decay_base": ("embed",),
+        "decay_lora_a": {"w": ("embed", None)},
+        "decay_lora_b": {"w": (None, "embed")},
+        "u_bonus": ("embed",),
+        "out_norm": {"scale": (None,), "bias": (None,)},
+        "wo": {"w": ("heads", "embed")},
+    }
+
+
+def channel_mix_axes(cfg: ArchConfig) -> dict:
+    return {
+        "mix_k": ("embed",),
+        "mix_r": ("embed",),
+        "wk": {"w": ("embed", "mlp")},
+        "wv": {"w": ("mlp", "embed")},
+        "wr": {"w": ("embed", "heads")},
+    }
+
+
+def state_axes() -> dict:
+    return {"wkv": ("batch", "heads", None, None),
+            "shift_t": ("batch", "embed"),
+            "shift_c": ("batch", "embed")}
+
+
 def init_state(cfg: ArchConfig, batch: int, dtype=torch.bfloat16,
                device=None) -> dict:
     h, hd = _dims(cfg)
+    ax = state_axes()
     return {
-        "wkv": torch.zeros((batch, h, hd, hd), device=device),
-        "shift_t": torch.zeros((batch, cfg.d_model), dtype=dtype,
-                               device=device),
-        "shift_c": torch.zeros((batch, cfg.d_model), dtype=dtype,
-                               device=device),
+        "wkv": sharding.place(torch.zeros((batch, h, hd, hd), device=device),
+                              *ax["wkv"]),
+        "shift_t": sharding.place(torch.zeros((batch, cfg.d_model),
+                                              dtype=dtype, device=device),
+                                  *ax["shift_t"]),
+        "shift_c": sharding.place(torch.zeros((batch, cfg.d_model),
+                                              dtype=dtype, device=device),
+                                  *ax["shift_c"]),
     }
 
 
@@ -131,23 +174,42 @@ def time_mix(p, cfg: ArchConfig, x: torch.Tensor,
         torch.tanh(nn.dense(p["decay_lora_a"], xw, dtype=f32)), dtype=f32)
     w = torch.exp(-torch.exp(decay))                              # in (0, 1)
 
+    # on a mesh, each rank scans its batch rows and whole heads
+    ax = Roles(0, 2, hd)
+    o, s_fin = local_map_roles(
+        lambda *a: _wkv(cfg, *a), (r, k, v, w, p["u_bonus"], wkv_state,
+                                   p["out_norm"]["scale"],
+                                   p["out_norm"]["bias"]),
+        (ax, ax, ax, ax, Roles(None, 0, hd), Roles(0, 1),
+         Roles(None), Roles(None)), (ax, Roles(0, 1)))
+    o = (o * g).to(x.dtype)
+    out = nn.dense(p["wo"], o, dtype=x.dtype)
+    shift_dtype = shift.dtype if shift is not None else x.dtype
+    return out, s_fin, x[:, -1].to(shift_dtype)
+
+
+def _wkv(cfg: ArchConfig, r, k, v, w, u_bonus, wkv_state, norm_scale,
+         norm_bias):
+    """The WKV recurrence and its per-head group norm on (a rank's) whole
+    heads: r, k, v, w (B, T, H hd) flat, u_bonus (H hd,), the state (B, H,
+    hd, hd) or None -> (normed o (B, T, H hd), final state)."""
+    b, t, d = r.shape
+    hd = cfg.hd
+    h = d // hd
     q_, k_, v_, w_ = (_heads(a, h) for a in (r, k, v, w))
     s0 = wkv_state.reshape(b * h, hd, hd) if wkv_state is not None else None
     # o_t = r (S_{t-1} + diag(u_h) k v^T) = scan(u = 0) + (r . (u_h k)) v
-    zero_u = torch.zeros((hd,), device=x.device)
+    zero_u = torch.zeros((hd,), device=r.device)
     o, s_fin = kops.gated_linear_scan(
         q_, k_, v_, w_, zero_u, s0, decay_before_read=False,
         impl=cfg.scan_impl, chunk=cfg.scan_chunk)
-    u_bh = p["u_bonus"].reshape(1, h, 1, hd).expand(b, h, 1, hd) \
+    u_bh = u_bonus.reshape(1, h, 1, hd).expand(b, h, 1, hd) \
         .reshape(b * h, 1, hd)
     o = o + torch.sum(q_ * (u_bh * k_), dim=-1, keepdim=True) * v_
 
     o = o.reshape(b, h, t, hd).transpose(1, 2)                    # (B,T,H,hd)
-    o = nn.layernorm(p["out_norm"], o)                            # group norm
-    o = (o.reshape(b, t, d) * g).to(x.dtype)
-    out = nn.dense(p["wo"], o, dtype=x.dtype)
-    shift_dtype = shift.dtype if shift is not None else x.dtype
-    return out, s_fin.reshape(b, h, hd, hd), x[:, -1].to(shift_dtype)
+    o = nn.layernorm({"scale": norm_scale, "bias": norm_bias}, o)  # group norm
+    return o.reshape(b, t, d), s_fin.reshape(b, h, hd, hd)
 
 
 def channel_mix(p, cfg: ArchConfig, x: torch.Tensor,

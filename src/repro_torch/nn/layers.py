@@ -1,7 +1,10 @@
 """Functional layers: dense, norms, embeddings, their initializers, and the
 parameter container the LM modules use.
 
-Port of `repro.nn.layers` (the parts the LM serving path needs).  A layer is
+Port of `repro.nn.layers` (the parts the LM serving path needs).  On a
+device mesh the tensors are DTensors; `dense` gathers a sequence split
+over ranks before its product, and its output gradient's in the backward
+(`_gathered_rows`): DTensor refuses to flatten a split inner dim.  A layer is
 a function of a parameter dict and an input, as in the JAX package, so the
 model code reads like its reference.  Initializers draw from a
 `torch.Generator` and create tensors on the default device, which the
@@ -16,6 +19,7 @@ import math
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 Initializer = Callable[[torch.Generator, tuple[int, ...]], torch.Tensor]
 
@@ -92,10 +96,40 @@ def dense(p, x: torch.Tensor, *, dtype: torch.dtype | None = None
     if x.dtype != w.dtype:
         common = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(common), w.to(common)
-    y = x @ w
+    y = x @ w if not isinstance(x, DTensor) else \
+        _RowsGatheredGrad.apply(_gathered_rows(x) @ w)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def _gathered_rows(x: torch.Tensor) -> torch.Tensor:
+    """`x` with any shard of a dim between its first and its last gathered
+    (a DTensor whose sequence is split over ranks, the stored residual
+    stream): a product flattens the leading dims, and DTensor refuses to
+    flatten a split inner dim (the all-gather of sequence parallelism).
+    Anything else is returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    want = tuple(Replicate() if isinstance(pl, Shard) and
+                 0 < pl.dim < x.ndim - 1 else pl for pl in x.placements)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+class _RowsGatheredGrad(torch.autograd.Function):
+    """Identity whose backward gathers a gradient's split inner dims (the
+    product's backward flattens its output gradient as its forward
+    flattened the input)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gathered_rows(g)
 
 
 # --- norms -------------------------------------------------------------------

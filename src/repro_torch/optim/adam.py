@@ -13,12 +13,21 @@ the arithmetic follows the reference op for op:
 
 Leaves are processed with `torch._foreach_*` in groups of at most
 `_GROUP_ELEMENTS` values, which bounds the temporaries.
+
+On a device mesh the leaves are DTensors.  The update is elementwise, so
+each rank runs the same chain on its local shards, with the gradients and
+the moments first laid out as their parameters (a gradient's pending sum
+reduced); only the clip's norm crosses ranks, as a sum of squares over
+each leaf's shards (`global_norm`).  A norm over a DTensor holding a
+pending (Partial) sum would not be a norm, so such leaves are reduced
+first.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 _GROUP_ELEMENTS = 1 << 27
 
@@ -54,9 +63,58 @@ def adam_init(params: list[torch.Tensor]) -> AdamState:
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every value, in float32."""
+    """sqrt of the sum of squares of every value, in float32.  Over
+    DTensors, a plain scalar equal on every rank."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        return _mesh_norm(tensors)
     sq = [torch.sum(torch.square(t.float())) for t in tensors]
     return torch.sqrt(torch.stack(sq).sum())
+
+
+def _mesh_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """`global_norm` of DTensors: each rank sums the squares of its shards,
+    leaves grouped by the mesh dims they are split over, and each group's
+    sum is reduced over those dims only (a replicated value counts once)."""
+    groups: dict = {}
+    for t in tensors:
+        t = _reduced(t)
+        split = tuple(j for j, pl in enumerate(t.placements)
+                      if isinstance(pl, Shard))
+        sq = torch.sum(torch.square(t.to_local().float()))
+        groups.setdefault((t.device_mesh, split), []).append(sq)
+    total = None
+    for (mesh, split), sq in groups.items():
+        part = DTensor.from_local(
+            torch.stack(sq).sum(), mesh,
+            [Partial() if j in split else Replicate()
+             for j in range(mesh.ndim)], run_check=False).full_tensor()
+        total = part if total is None else total + part
+    return torch.sqrt(total)
+
+
+def _reduced(t: DTensor) -> DTensor:
+    """`t` with any pending (Partial) sum reduced."""
+    if any(isinstance(pl, Partial) for pl in t.placements):
+        return t.redistribute(t.device_mesh, [
+            Replicate() if isinstance(pl, Partial) else pl
+            for pl in t.placements])
+    return t
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _like(x: torch.Tensor, p: DTensor) -> torch.Tensor:
+    """`x` laid out as the DTensor `p` (a plain tensor taken as
+    replicated)."""
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, p.device_mesh,
+                               [Replicate()] * p.device_mesh.ndim,
+                               run_check=False)
+    if tuple(x.placements) != tuple(p.placements):
+        x = x.redistribute(p.device_mesh, p.placements)
+    return x
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -97,6 +155,8 @@ def adam_update(cfg: AdamConfig, params: list[torch.Tensor],
     `norm` is the grads' global norm where the caller has it already (the
     clip then does not compute it again)."""
     params, grads = list(params), list(grads)
+    if any(isinstance(p, DTensor) for p in params):
+        return _mesh_update(cfg, params, grads, state, lr, norm)
     scale = None
     if cfg.grad_clip is not None:  # clip_by_global_norm, group by group
         norm = global_norm(grads) if norm is None else norm
@@ -135,4 +195,29 @@ def adam_update(cfg: AdamConfig, params: list[torch.Tensor],
         else:
             torch._foreach_sub_(p32, delta)
             torch._foreach_copy_(p, p32)
+    return params, state
+
+
+def _mesh_update(cfg: AdamConfig, params, grads, state: AdamState, lr, norm):
+    """`adam_update` of DTensor leaves: the gradients and moments laid out
+    as their parameters, then the plain update on every rank's local
+    shards, in place.  Moments laid out otherwise (`opt_shardings` with
+    rules of their own) are updated in the parameters' layout and written
+    back to theirs."""
+    if cfg.grad_clip is not None and norm is None:
+        norm = global_norm(grads)
+    moved = [(m, _like(m, p), v, _like(v, p))
+             for m, v, p in zip(state.m, state.v, params)]
+    local = AdamState(step=_local(state.step),
+                      m=[_local(mp) for _, mp, _, _ in moved],
+                      v=[_local(vp) for _, _, _, vp in moved])
+    adam_update(cfg, [_local(p) for p in params],
+                [_local(_like(g, p)) for g, p in zip(grads, params)], local,
+                lr=_local(lr) if isinstance(lr, torch.Tensor) else lr,
+                norm=None if norm is None else _local(norm))
+    with torch.no_grad():
+        for m, mp, v, vp in moved:
+            for own, upd in ((m, mp), (v, vp)):
+                if upd is not own:
+                    own.to_local().copy_(_like(upd, own).to_local())
     return params, state

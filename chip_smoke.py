@@ -146,13 +146,13 @@ In order, and any failure exits non-zero:
      the rows one env off outside it), and env-steps/s beside that
      iteration's; then hit_les_24dof with its 16 envs each split over 2
      ranks by its x-slabs (`FleetConfig(elem_axis="model")` on a (data 1,
-     model 2) mesh, `split_rank`, episodes cut to 10 RL steps): one RL
+     model 2) mesh, `split_rank`, episodes cut to 5 RL steps): one RL
      interval of 16 bank rows under a fixed C_s field within TOL_SPLIT of
      the same staged assembly in one process and within TOL of the fused
      kernel path (the state one env off outside TOL_SPLIT), one in bf16
      within the bf16 TOL of the same assembly in bf16 in one process, then
      one PPO iteration (no evaluation) that launches dg_derivative3
-     (tiled) and smagorinsky_nut exactly 650 times a rank and the fused
+     (tiled) and smagorinsky_nut exactly 325 times a rank and the fused
      RHS never, params and Adam state bitwise on both ranks, return_norm
      in [-1, 1], the step-0 rows within TOL_FLEET_ROWS of one process's
      first RL step of the same assembly; the ranks' times, the halo
@@ -234,13 +234,25 @@ In order, and any failure exits non-zero:
      comparison over ranks; the encoder-causal control rejected); every
      parameter's and cache leaf's local shard its spec's share; each
      rank's peak memory and its collectives' count, bytes and seconds by
-     op; then
+     op; the dry run (`dryrun_phase`, `launch/dryrun.py` on fake meshes
+     of meta shards) held to that mesh run: whisper-tiny's first training
+     step, its prefill of the 4 prompts and one decode step of each
+     combine on a fake (1, 2) "cuda" mesh issue the ranks' staged
+     collectives, count for count and byte for byte (a layout control,
+     the rules with "act_seq" unsplit, must differ), the dry run's peak
+     per rank for that step within 0.5x-2x of the rank's measured peak,
+     and the dry run launches nothing and grows the allocator's peak by
+     under 1 MiB; production cells through the dry run's CLI, in
+     subprocesses that see no card (started before the hymba training
+     phase, read here; records in a temporary directory), each ending ok
+     or with the reference's skip reason; then
      profiles one RL step of each CFD path (the channel's launches per
      RHS), one HIT PPO epoch, one hymba prefill and one decode step, one
      whisper-tiny prefill and one decode step (torch.profiler) to show
      where the time goes;
-  6. prints one JSON line per the kernels' record (`launches` summed over
-     the paths, `launches_by_path` beside it), then the last line
+  6. prints the dry-run phase's readings as one JSON line, one JSON line
+     per the kernels' record (`launches` summed over the paths,
+     `launches_by_path` beside it), then the last line
      `{"ok": true, "device": {...}}`.
 Each phase's start is printed with the run's time so far.
 
@@ -250,6 +262,7 @@ from the shared build directory.
 """
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -337,7 +350,8 @@ TOL_FLEET_ROWS = 2e-5
 TOL_SPLIT = 2e-6
 SPLIT_ROWS = 16  # envs of each split run, the HIT path's
 # RL steps of an episode where a run cuts it, from 50 (hit_les_24dof), 20
-# (channel_wm) and 50 (burgers_96dof), to keep the run inside its limit:
+# (channel_wm) and 50 (burgers_96dof), to keep the run inside its limit
+# (hit_les_24dof's split run from 10 to 5 since the dry-run phase came):
 # the split runs (every split RHS exchanges its faces through the host),
 # and the channel and Burgers scenarios wherever they train (`FLEET_CUT`:
 # the channel path, the fleet in one process and over 3 ranks).  Both are
@@ -345,7 +359,7 @@ SPLIT_ROWS = 16  # envs of each split run, the HIT path's
 # 8 envs took 2.6 s on the H100): at 20 and 50 steps their episodes set
 # most of the channel path's and the fleet's time.  The gates read an episode's first
 # step's rows or count launches per step, so no gate's data changes.
-CUT_STEPS = {"hit_les_24dof": 10, "channel_wm": 5, "burgers_96dof": 5}
+CUT_STEPS = {"hit_les_24dof": 5, "channel_wm": 5, "burgers_96dof": 5}
 FLEET_CUT = ("channel_wm", "burgers_96dof")
 SPLIT3_NAMES = ("channel_wm", "burgers_96dof")  # split over 3 ranks
 FLEET_NAMES = ("hit_les_24dof", "channel_wm", "burgers_96dof")
@@ -1186,7 +1200,7 @@ def split_phase(names: list, card: str, tmp: str, hit_one: list) -> dict:
     """(d) of `distributed_phase`: hit_les_24dof with 16 envs, each split
     over 2 ranks by its x-slabs (`split_rank`; episodes cut to
     `CUT_STEPS`).  Gates: the ranks' PPO iteration launches
-    dg_derivative3 (tiled) and smagorinsky_nut exactly 650 times each a
+    dg_derivative3 (tiled) and smagorinsky_nut exactly 325 times each a
     rank and the fused RHS never; params and Adam state bitwise on both
     ranks; return_norm in [-1, 1]; the split RL interval within TOL_SPLIT
     of the same staged assembly in one process and within TOL of the fused
@@ -3039,6 +3053,19 @@ def gloo_probe() -> dict:
     return out
 
 
+def staged_marks(mesh) -> dict:
+    """{mesh dim: staged collectives its group has run so far}."""
+    return {name: len(mesh.get_group(name).records)
+            for name in mesh.mesh_dim_names}
+
+
+def staged_since(mesh, marks: dict) -> list:
+    """[mesh dim, op, bytes] of every staged collective run since
+    `staged_marks` gave `marks`, dim by dim, in order within each."""
+    return [[name, op, n_bytes] for name in mesh.mesh_dim_names
+            for op, n_bytes, _ in mesh.get_group(name).records[marks[name]:]]
+
+
 def mesh_rank(out: str) -> int:
     """One rank of `mesh_phase` under torchrun: whisper-tiny at full width
     on `launch.mesh.make_host_mesh()` (data 1, model 2), every count 0
@@ -3056,7 +3083,11 @@ def mesh_rank(out: str) -> int:
       prompt, prefill + 4 teacher-forced steps), each combine, and the
       control (the encoder run causal);
     * every parameter's and cache leaf's local shard against its spec,
-      the peak memory, and the staged collectives (op, bytes, seconds).
+      the peak memory, and the staged collectives (op, bytes, seconds);
+    * the staged collectives of single calls, for `dryrun_phase` to hold
+      the dry run to (`result["calls"]`): the first training step, the
+      prefill of the served prompts, and one decode step of each combine
+      after it.
 
     The ranks' records are gathered; rank 0 writes them to `out` (JSON)
     and the logits to `out`.pt."""
@@ -3087,6 +3118,8 @@ def mesh_rank(out: str) -> int:
     rules = specs.rules_for(mesh)
     cfg = configs.get("whisper-tiny")
     sizes = collectives.mesh_shape(mesh)
+    calls: dict = {}
+    result["calls"] = calls
 
     def shard_misses(tree: dict, spec_of: dict) -> list:
         """Leaves whose local shard is not their spec's share."""
@@ -3133,7 +3166,11 @@ def mesh_rank(out: str) -> int:
         with patched(ops, "attention", wrap or (lambda f: f)):
             for b in batches[:n_steps]:
                 t0 = time.perf_counter()
-                _, _, m = step(params, opt, specs.place_batch(b, b_sh, mesh))
+                placed = specs.place_batch(b, b_sh, mesh)
+                marks = staged_marks(mesh)
+                _, _, m = step(params, opt, placed)
+                if label == "train" and "train" not in calls:
+                    calls["train"] = staged_since(mesh, marks)
                 rec["loss"].append(float(specs.full(m["loss"])))
                 rec["grad_norm"].append(float(specs.full(m["grad_norm"])))
                 torch.cuda.synchronize()
@@ -3151,14 +3188,26 @@ def mesh_rank(out: str) -> int:
     shape = configs.ShapeConfig("serve", WHISPER_PROMPT + WHISPER_NEW,
                                 WHISPER_BATCH, "prefill")
     _, bp_sh = specs.batch_shardings(serve_cfg, shape, "prefill", mesh, rules)
-    batch = specs.place_batch({k: v for k, v in make_batch_for(
+    host = {k: v for k, v in make_batch_for(
         serve_cfg, 5, WHISPER_BATCH, WHISPER_PROMPT).items()
-        if k != "labels"}, bp_sh, mesh)
+        if k != "labels"}
+    batch = specs.place_batch(host, bp_sh, mesh)
     _, c_sh = specs.cache_shardings(serve_cfg, shape, mesh, rules)
+    marks = staged_marks(mesh)
     with shd.on_mesh(mesh):
         _, caches = api.prefill(params, serve_cfg, batch,
                                 cache_len=WHISPER_PROMPT + WHISPER_NEW)
+    calls["prefill"] = staged_since(mesh, marks)
     result["cache_shards"] = shard_misses(lm.flat_names(caches), c_sh)
+    _, tok_sh = specs.batch_shardings(serve_cfg, shape, "decode", mesh, rules)
+    tok = specs.place_batch({"token": host["tokens"][:, -1]}, tok_sh,
+                            mesh)["token"]
+    for combine in ("allgather", "flash"):
+        marks = staged_marks(mesh)
+        with shd.on_mesh(mesh):
+            _, caches = api.decode_step(params, dataclasses.replace(
+                serve_cfg, decode_combine=combine), tok, caches)
+        calls[f"decode {combine}"] = staged_since(mesh, marks)
     del caches
     result["serve"] = {}
     for combine in ("allgather", "flash"):
@@ -3359,6 +3408,265 @@ def mesh_phase(counters: list, card: str, whisper: dict, tmp: str) -> dict:
                 "flash_attention")] + sum(v["launches"][names.index(
                     "flash_attention")] for v in r["serve"].values())
                 for r in ranks)}
+
+
+# the dry run (phase 5, `dryrun_phase`): production cells through its CLI
+# on the (16, 16) mesh, each in a subprocess that sees no card, DRY_JOBS at
+# a time beside the phases that run meanwhile (`DryCells`)
+DRY_CELLS = (("--arch", "hymba-1.5b", "--shape", "train_4k"),
+             ("--arch", "hymba-1.5b", "--shape", "prefill_32k"),
+             ("--arch", "hymba-1.5b", "--shape", "decode_32k"),
+             ("--arch", "hymba-1.5b", "--shape", "long_500k"),
+             ("--arch", "deepseek-moe-16b", "--shape", "train_4k"),
+             ("--arch", "whisper-tiny", "--shape", "train_4k"),
+             ("--relexi",), ("--relexi", "--no-elem-shard"), ("--channel",))
+DRY_JOBS = 4
+# the dry run's peak per rank against the rank's measured peak
+DRY_PEAK_RATIO = (0.5, 2.0)
+DRY_ALLOC_BYTES = 1 << 20
+
+
+class DryCells:
+    """DRY_CELLS through `python -m repro_torch.launch.dryrun`, DRY_JOBS at
+    a time, records and logs under `tmp`, started by a thread while the
+    phases after it run.  The subprocesses see no card
+    (CUDA_VISIBLE_DEVICES empty): the fake "cuda" mesh needs none.
+    `results()` waits for them: [(cell, exit code, wall seconds, log)];
+    `stop()` kills any still running."""
+
+    def __init__(self, tmp: str):
+        import threading
+
+        self.tmp, self.done, self.running = tmp, [], {}
+        self.stopped = False
+        self.thread = threading.Thread(target=self._loop, daemon=True)
+        self.thread.start()
+
+    def _loop(self) -> None:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   CUDA_VISIBLE_DEVICES="")
+        pending = list(enumerate(DRY_CELLS))
+        while (pending or self.running) and not self.stopped:
+            while pending and len(self.running) < DRY_JOBS:
+                i, cell = pending.pop(0)
+                log = open(os.path.join(self.tmp, f"cell{i}.log"), "w+")
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     *cell, "--artifact-dir", os.path.join(self.tmp, "rec")],
+                    stdout=log, stderr=subprocess.STDOUT, env=env)
+                self.running[i] = (cell, proc, log, time.perf_counter())
+            for i, (cell, proc, log, t0) in list(self.running.items()):
+                if proc.poll() is not None:
+                    log.seek(0)
+                    self.done.append((cell, proc.returncode,
+                                      time.perf_counter() - t0, log.read()))
+                    log.close()
+                    del self.running[i]
+            time.sleep(0.2)
+
+    def results(self, timeout: float = 900) -> list:
+        self.thread.join(timeout)
+        if self.thread.is_alive():
+            self.stop()
+            raise AssertionError(f"G4: dry-run cells still running after "
+                                 f"{timeout} s")
+        return sorted(self.done, key=lambda r: DRY_CELLS.index(r[0]))
+
+    def stop(self) -> None:
+        self.stopped = True
+        for _, proc, _, _ in list(self.running.values()):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def dryrun_phase(counters: list, card: str, meshed: dict,
+                 dry_cells: DryCells) -> dict:
+    """The dry run (`launch/dryrun.py`) held to the card's own mesh run,
+    in this process (no process group may exist here):
+
+    G1: whisper-tiny's first bf16 training step (2 x 4,096 tokens), its
+        prefill of WHISPER_BATCH prompts and one decode step of each
+        combine, on a fake (1, 2) "cuda" mesh through `specs.lower_cell`,
+        must issue the (mesh dim, op, bytes) the mesh phase's ranks staged
+        around the same calls (`mesh_rank`'s `calls`), as multisets; the
+        training step under the rules with "act_seq" unsplit (another
+        layout) must not;
+    G2: the dry run's peak per rank for that step within DRY_PEAK_RATIO
+        of the rank's `max_memory_allocated` over its training steps;
+    G3: no launch counter moves and the allocator's peak grows by under
+        DRY_ALLOC_BYTES;
+    G4: the production cells `dry_cells` ran, read from their records:
+        each ok or skipped with the reference's reason.
+    Prints every reading; returns them."""
+    import torch
+    from collections import Counter
+
+    from repro_torch import configs, optim
+    from repro_torch.configs.shapes import cells
+    from repro_torch.launch import dryrun, hlo_analysis, specs
+    from repro_torch.launch import mesh as mesh_lib
+
+    names = [fn.__name__ for fn in counters]
+    out: dict = {}
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.get("whisper-tiny"),
+                              attn_impl="chunked", scan_impl="chunked")
+    serve = dataclasses.replace(cfg, param_dtype="bfloat16")
+    adam = optim.AdamConfig(lr=3e-4, grad_clip=1.0)
+    cells_g1 = {
+        "train": (cfg, configs.ShapeConfig("train", WHISPER_TRAIN[1],
+                                           WHISPER_TRAIN[0], "train"), None),
+        "prefill": (serve, configs.ShapeConfig(
+            "prefill", WHISPER_PROMPT, WHISPER_BATCH, "prefill"), None),
+        "decode allgather": (serve, configs.ShapeConfig(
+            "decode", WHISPER_PROMPT + WHISPER_NEW, WHISPER_BATCH,
+            "decode"), None),
+        "decode flash": (dataclasses.replace(serve, decode_combine="flash"),
+                         configs.ShapeConfig(
+                             "decode", WHISPER_PROMPT + WHISPER_NEW,
+                             WHISPER_BATCH, "decode"), None),
+        "control": (cfg, configs.ShapeConfig(
+            "train", WHISPER_TRAIN[1], WHISPER_TRAIN[0], "train"),
+            {"act_seq": None}),
+    }
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    peak_before = torch.cuda.max_memory_allocated()
+    recs = {}
+    for label, (c, shape, rules) in cells_g1.items():
+        t0 = time.perf_counter()
+        with mesh_lib.fake_mesh((1, MESH_RANKS), ("data", "model"),
+                                "cuda") as mesh:
+            run, _ = specs.lower_cell(c, shape, mesh, rules, adam_cfg=adam)
+            recs[label] = run()
+        print(f"  dry run of whisper-tiny {label} on a fake (1, "
+              f"{MESH_RANKS}) cuda mesh: {time.perf_counter() - t0:.1f} s, "
+              f"{len(recs[label].records)} collectives, "
+              f"{recs[label].flops:.4g} FLOPs, peak "
+              f"{recs[label].peak / 2**30:.3f} GiB per rank")
+    grown = torch.cuda.max_memory_allocated() - peak_before
+    moved = [fn.launches for fn in counters]
+    print(f"  G3 ({card}): the dry runs launched {dict(zip(names, moved))} "
+          f"and grew the allocator's peak by {grown} B (limit "
+          f"{DRY_ALLOC_BYTES} B)")
+    if any(moved) or grown >= DRY_ALLOC_BYTES:
+        raise AssertionError(f"dry run not dry: launches {moved}, "
+                             f"allocator peak +{grown} B")
+    out["g3"] = {"launches": moved, "alloc_peak_growth_bytes": grown}
+
+    # G1: the ranks' staged collectives of the same calls
+    ranks = meshed["ranks"]
+    g1 = {}
+    for label in ("train", "prefill", "decode allgather", "decode flash"):
+        want = [Counter(tuple(r) for r in rank["calls"][label])
+                for rank in ranks]
+        got = Counter(recs[label].records)
+        by_op = Counter()
+        for dim, op, n_bytes in recs[label].records:
+            by_op[f"{dim} {op}"] += n_bytes
+        g1[label] = {"dry": len(recs[label].records),
+                     "ranks": [sum(w.values()) for w in want],
+                     "dry_bytes_by_op": dict(by_op),
+                     "equal": all(got == w for w in want)}
+        print(f"  G1 whisper-tiny {label}: dry run {len(recs[label].records)}"
+              f" collectives {dict(by_op)} B; ranks "
+              f"{[sum(w.values()) for w in want]} collectives; multisets "
+              f"of (mesh dim, op, bytes) equal: {g1[label]['equal']}")
+        if not g1[label]["equal"]:
+            for w in want:
+                print(f"    rank only: {sorted((w - got).items())[:8]}; "
+                      f"dry only: {sorted((got - w).items())[:8]}")
+    control = Counter(recs["control"].records) == Counter(
+        tuple(r) for r in ranks[0]["calls"]["train"])
+    print(f"  G1 control (training under {{'act_seq': None}}): "
+          f"{len(recs['control'].records)} collectives, equal to the "
+          f"ranks': {control}")
+    if not all(v["equal"] for v in g1.values()) or control:
+        raise AssertionError("G1: the dry run's collectives "
+                             + ("match the control" if control else
+                                "differ from the ranks'"))
+    out["g1"] = {**g1, "control_equal": control}
+
+    # G2: the peak per rank of the training step
+    dry_peak = recs["train"].peak / 2**30
+    card_peak = [r["train"]["peak_gib"] for r in ranks]
+    ratios = [dry_peak / p for p in card_peak]
+    print(f"  G2 whisper-tiny training step, peak per rank ({card}): dry "
+          f"run {dry_peak:.3f} GiB, ranks' max_memory_allocated "
+          f"{[round(p, 3) for p in card_peak]} GiB, ratio "
+          f"{[round(x, 3) for x in ratios]} (allowed {DRY_PEAK_RATIO})")
+    if not all(DRY_PEAK_RATIO[0] <= x <= DRY_PEAK_RATIO[1] for x in ratios):
+        raise AssertionError(f"G2: dry-run peak {dry_peak:.3f} GiB against "
+                             f"{card_peak}")
+    out["g2"] = {"dry_gib": dry_peak, "rank_gib": card_peak}
+
+    # G4: the production cells
+    t0 = time.perf_counter()
+    results = dry_cells.results()
+    waited = time.perf_counter() - t0
+    g4 = []
+    rec_dir = os.path.join(dry_cells.tmp, "rec")
+    for cell, code, wall, log in results:
+        recs_g4 = []
+        for fname in sorted(os.listdir(rec_dir)):
+            with open(os.path.join(rec_dir, fname)) as f:
+                rec = json.load(f)
+            if _dry_matches(rec, cell):
+                recs_g4.append(rec)
+        if code != 0 or not recs_g4:
+            print(log)
+            raise AssertionError(f"G4: dry run {' '.join(cell)} exited "
+                                 f"{code}, {len(recs_g4)} records")
+        for rec in recs_g4:
+            line = {"cell": " ".join(cell), "arch": rec["arch"],
+                    "shape": rec["shape"], "status": rec["status"],
+                    "wall_s": round(wall, 1)}
+            if rec["status"] == "skip":
+                want = {s.name: why for s, ok, why in cells(configs.get(
+                    rec["arch"])) if not ok}
+                if want.get(rec["shape"]) != rec["reason"]:
+                    raise AssertionError(f"G4: {rec['arch']} {rec['shape']} "
+                                         f"skipped: {rec['reason']}")
+                line["reason"] = rec["reason"]
+            elif rec["status"] == "ok":
+                line.update(
+                    gib=rec["peak_bytes_per_dev"] / 2**30,
+                    fits=rec["fits_hbm"], flops=rec["flops_per_dev"],
+                    coll={k: v for k, v in rec[
+                        "collective_bytes_per_dev"].items() if v},
+                    bound=rec["roofline"]["bound"], run_s=rec["t_run_s"])
+            else:
+                raise AssertionError(f"G4: {rec['arch']} {rec['shape']} "
+                                     f"failed: {rec.get('error')}")
+            g4.append(line)
+            print(f"  G4 [{rec['mesh']}] {rec['arch']} {rec['shape']}: "
+                  + (f"skip ({rec['reason']})" if rec["status"] == "skip"
+                     else f"{line['gib']:.3f} GiB per device of "
+                          f"{mesh_lib.HBM_BYTES / 1e9:.0f} GB, "
+                          f"{line['flops']:.4g} FLOPs, collectives "
+                          f"{line['coll'] or 'none'} B, bound "
+                          f"{line['bound']}, recorded run {line['run_s']} s")
+                  + f", {wall:.1f} s wall (an estimate for an H100 "
+                    f"cluster, made on {card}'s host)")
+    print(f"  G4: {len(g4)} records of {len(DRY_CELLS)} CLI runs; waited "
+          f"{waited:.1f} s for them here")
+    out["g4"] = g4
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["g4_waited_s"] = waited
+    return out
+
+
+def _dry_matches(rec: dict, cell: tuple) -> bool:
+    """Whether the dry run's record `rec` is the one CLI run `cell` made."""
+    if cell[0] == "--relexi":
+        return rec["kind"] == "rl_step" and rec["arch"].startswith(
+            "relexi") and rec["shape"].endswith(
+            "_noelem" if "--no-elem-shard" in cell else "_elem4")
+    if cell[0] == "--channel":
+        return rec["arch"] == "channel-wm"
+    return (rec["arch"], rec["shape"]) == (cell[1], cell[3])
 
 
 def percentile(values: list, q: float) -> float:
@@ -4582,6 +4890,10 @@ def main() -> int:
     for kind, n_ in scan_instances.items():
         by_path[f"linear_scan {kind}"] = {"hymba-1.5b": n_}
 
+    # the dry run's production cells run on the host beside the phases
+    # from here to `dryrun_phase`
+    dry_cells = DryCells(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    atexit.register(dry_cells.stop)  # a failure before `dryrun_phase`
     elapsed("phase 5: hymba-1.5b training")
     del params, caches, logits  # the served model's: training needs the room
     trained = lm_train_phase(counters, card)
@@ -4621,6 +4933,15 @@ def main() -> int:
               f"and torchrun included")
     finally:
         shutil.rmtree(mesh_tmp, ignore_errors=True)
+
+    elapsed("phase 5: the dry run against the mesh run")
+    try:
+        dry = dryrun_phase(counters, card, meshed, dry_cells)
+    finally:
+        dry_cells.stop()
+        shutil.rmtree(dry_cells.tmp, ignore_errors=True)
+    print(f"  the dry run: {dry['phase_s']:.1f} s in this process, "
+          f"{dry['g4_waited_s']:.1f} s of it waiting for the CLI cells")
     by_path["flash_attention"][f"whisper-tiny over {MESH_RANKS} ranks"] = \
         meshed["launches"]
     launches = {name: sum(p.values()) for name, p in by_path.items()}
@@ -4728,6 +5049,7 @@ def main() -> int:
     record["linear_scan step"]["extra"] = {"families": {
         "rwkv6-1.6b decode step": family_times["rwkv6-1.6b decode step"]}}
     print(json.dumps({"analysis": analysis}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -5,11 +5,12 @@ import os
 from .mesh import (init_distributed, make_fleet_mesh, make_host_mesh,
                    make_local_mesh)
 
-# Where the AOT dry-run writes its per-cell JSON artifacts, which the fleet
-# scheduler reads measured step costs back from (the JAX package's path).
+# Where the dry run (`launch/dryrun.py`) writes its per-cell JSON
+# artifacts, which the fleet scheduler reads measured step costs back from:
+# `torch_artifacts/dryrun/` at the repo root (not committed).
 DRYRUN_ARTIFACT_DIR = os.path.join(
     os.path.dirname(__file__), "..", "..", "..",
-    "benchmarks", "artifacts", "dryrun")
+    "torch_artifacts", "dryrun")
 
 __all__ = ["DRYRUN_ARTIFACT_DIR", "init_distributed", "make_fleet_mesh",
            "make_host_mesh", "make_local_mesh"]

@@ -11,12 +11,19 @@ the host has a card of its own, gloo otherwise (`backend_for`).
 (`core/orchestrator.py`; the geometry and the collectives over a mesh are
 `core/collectives.py`).
 
-The reference's TPU pod mesh (`make_production_mesh`) and its TPU v5e
-roofline constants belong to its dry-run and have no counterpart here.
+The dry run's meshes (`launch/dryrun.py`) are `fake_mesh`es: a
+`DeviceMesh` over a fake-backend default group of which this process is
+rank 0, which holds meta shards and issues no communication.
+`make_production_mesh` is the reference's (16, 16) ("data", "model") mesh,
+or (2, 16, 16) ("pod", "data", "model") over two clusters, as such a mesh.
+The H100 constants below replace the reference's TPU v5e ones in the dry
+run's roofline terms.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
+import math
 import os
 
 import torch
@@ -134,3 +141,52 @@ def make_local_mesh(*, model: int = 1,
         [group, group], resolve_device(device).type,
         mesh=torch.tensor([[dist.get_rank()]]),
         mesh_dim_names=("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: tuple[int, ...], names: tuple[str, ...],
+              device_type: str = "cuda"):
+    """A `DeviceMesh` of `shape` with dims `names` over a fake-backend
+    default group of prod(shape) ranks, this process rank 0: every rank's
+    group exists, and no collective moves a byte.  The default group is
+    made on entry and destroyed on exit (a fake world left behind would
+    turn this process's next `init_distributed` into a no-op); entry
+    raises if a default group already exists.  `device_type` is the
+    device the mesh stands for: DTensor picks its collectives by it
+    ("cuda" moves a shard between dims by all-to-all, "cpu" by all-gather
+    and chunk), and meta tensors need no card of either kind."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh needs a process with no default "
+                           "process group")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield init_device_mesh(device_type, tuple(shape),
+                               mesh_dim_names=tuple(names))
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The reference's production mesh as a `fake_mesh` (a context
+    manager): (data 16, model 16), 256 ranks, or (pod 2, data 16, model
+    16), 512 ranks, with `multi_pod`.  "pod" is the slow axis between two
+    clusters: only data parallelism and gradient sums cross it."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return fake_mesh(shape, axes, device_type)
+
+
+# Roofline constants of one H100 SXM at its 700 W limit (NVIDIA's data
+# sheet, dense rates), replacing the reference's TPU v5e ones.
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s per card, bf16 tensor cores
+HBM_BW = 3.35e12                # bytes/s per card
+HBM_BYTES = 80e9                # bytes of HBM per card
+# bytes/s each way per card on the link a 16-wide axis crosses: with 8
+# cards a host, such an axis spans two hosts, and each card has one
+# 400 Gb/s NDR InfiniBand port.  An assumption about a cluster that was
+# never measured here; NVLink's 450 GB/s each way holds only inside a
+# host.  The reference has one link rate too (its ICI_BW).
+LINK_BW = 50e9

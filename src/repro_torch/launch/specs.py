@@ -14,9 +14,9 @@ have no stacked entry.  The same specs lay out the real tensors as DTensors
 (`place_params`, `place_opt`, `place_batch`), which `launch/train.py`
 trains on.
 
-`lower_cell`, the reference's `.lower()` of a cell's program for the dry
-run, belongs with `launch/dryrun.py` and `launch/hlo_analysis.py`, the
-slice after this module.
+`lower_cell` is the dry run's cell (`launch/dryrun.py`): the same specs
+lay meta shards out as DTensors, and the cell's program runs on them under
+a `launch.hlo_analysis.Recorder`.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from ..configs.shapes import ShapeConfig
 from ..models import api, lm
 from ..models.config import ArchConfig
 from ..parallel import sharding as shd
+from . import hlo_analysis
 
 
 def rules_for(mesh, overrides: dict | None = None) -> shd.AxisRules:
@@ -143,17 +144,110 @@ def serve_fn(cfg: ArchConfig):
     return step
 
 
+def lower_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
+               rule_overrides: dict | None = None,
+               donate: bool = True,
+               opt_rule_overrides: dict | None = None,
+               adam_cfg: optim.AdamConfig | None = None):
+    """The dry run's counterpart of the reference's `.lower()` of a cell:
+    lay the cell's arguments out on `mesh` as DTensors of meta shards (the
+    parameters, and Adam's state and the batch for "train"; the batch for
+    "prefill"; the token and the caches for "decode"), each by its spec.
+    Returns (cell, meta): `cell()` runs the program on them once, under
+    the mesh's rules and a `hlo_analysis.Recorder`, and returns the
+    Recorder, its `memory` the reference's memory-analysis fields
+    (`hlo_analysis.memory_analysis`).  `meta` is the reference's dict.
+
+    The programs are `train_fn` (`api.train_step` with `adam_cfg`, as
+    `launch/train.build_train_fn` runs it), `prefill_fn` (cache_len =
+    seq_len) and `serve_fn`.  Eager PyTorch updates the parameters, Adam's
+    state and the caches in place whatever `donate` says; `donate` says
+    whether those outputs count as aliasing their arguments
+    (`alias_size_in_bytes`), as XLA's donation does.  Nothing is
+    allocated: a cell whose program reaches a kernel wrapper raises there
+    (meta tensors have no kernel), so the LM cells of the dry run use the
+    plain forms (`attn_impl` / `scan_impl` "chunked")."""
+    rules = rules_for(mesh, rule_overrides)
+    opt_rules = (rules_for(mesh, opt_rule_overrides)
+                 if opt_rule_overrides is not None else None)
+    rec = hlo_analysis.Recorder(mesh)
+    ap, p_sh = param_shardings(cfg, mesh, rules)
+    replace_params(ap, lambda name, p: rec.distribute(p, p_sh[name], mesh))
+    ab, b_sh = batch_shardings(cfg, shape, shape.kind, mesh, rules)
+    batch = {k: rec.distribute(v, b_sh[k], mesh) for k, v in ab.items()}
+    donated: tuple = ()
+    if shape.kind == "train":
+        ao, o_sh = opt_shardings(ap, p_sh, mesh, cfg, opt_rules)
+        opt = optim.AdamState(
+            step=rec.distribute(ao.step, o_sh.step, mesh),
+            m=[rec.distribute(x, s, mesh) for x, s in zip(ao.m, o_sh.m)],
+            v=[rec.distribute(x, s, mesh) for x, s in zip(ao.v, o_sh.v)])
+        fn, args = train_fn(cfg, adam_cfg), (ap, opt, batch)
+        donated = (ap, opt) if donate else ()
+    elif shape.kind == "prefill":
+        fn, args = prefill_fn(cfg, shape.seq_len), (ap, batch)
+    else:
+        ac, c_sh = cache_shardings(cfg, shape, mesh, rules)
+        caches = _map_leaves(ac, lambda name, x: rec.distribute(
+            x, c_sh[name], mesh) if isinstance(x, torch.Tensor) else x)
+        fn, args = serve_fn(cfg), (ap, batch["token"], caches)
+        donated = (caches,) if donate else ()
+
+    def cell() -> hlo_analysis.Recorder:
+        with rec.run(), shd.on_mesh(mesh, rule_overrides):
+            out = fn(*args)
+        rec.memory = hlo_analysis.memory_analysis(
+            rec, _operands(args), _operands(out), _operands(donated))
+        return rec
+
+    meta = {"arch": cfg.name, "shape": shape.name, "kind": shape.kind,
+            "mesh": dict(shd.mesh_axis_sizes(mesh))}
+    return cell, meta
+
+
+def _operands(tree):
+    """`tree` with each module replaced by its parameters and each
+    `AdamState` by its (step, m, v): the tensors a cell takes or gives."""
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.parameters())
+    if isinstance(tree, optim.AdamState):
+        return [tree.step, tree.m, tree.v]
+    if isinstance(tree, (list, tuple)):
+        return [_operands(x) for x in tree]
+    if isinstance(tree, dict):
+        return {k: _operands(v) for k, v in tree.items()}
+    return tree
+
+
+def _map_leaves(tree, fn, prefix: str = ""):
+    """`tree` (nested dicts and lists) with each leaf replaced by
+    `fn(name, leaf)`, named as `lm.flat_names` names it."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn, f"{prefix}{k}.")
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_leaves(v, fn, f"{prefix}{i}.")
+                for i, v in enumerate(tree)]
+    return fn(prefix[:-1], tree)
+
+
 # --- laying real tensors out ----------------------------------------------------
+def replace_params(module: torch.nn.Module, make) -> None:
+    """Swap every parameter `p` of `module`, named `name`, for
+    `make(name, p)`, keeping `requires_grad`."""
+    for name, p in list(module.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = module.get_submodule(owner) if owner else module
+        mod.register_parameter(leaf, torch.nn.Parameter(
+            make(name, p.detach()), requires_grad=p.requires_grad))
+
+
 def place_params(params: torch.nn.Module, specs: dict, mesh) -> None:
     """Swap every parameter of `params` (alike on every rank, as a seeded
     init or a restored checkpoint gives them) for the DTensor of its spec,
     keeping `requires_grad`."""
-    for name, p in list(params.named_parameters()):
-        owner, _, leaf = name.rpartition(".")
-        mod = params.get_submodule(owner) if owner else params
-        mod.register_parameter(leaf, torch.nn.Parameter(
-            shd.distribute(p.detach(), specs[name], mesh),
-            requires_grad=p.requires_grad))
+    replace_params(params, lambda name, p: shd.distribute(p, specs[name],
+                                                          mesh))
 
 
 def place_opt(opt_state: optim.AdamState, opt_specs: optim.AdamState,
@@ -189,7 +283,7 @@ def local_shapes(tree: dict) -> dict:
 
 
 __all__ = ["abstract_batch", "batch_axes", "batch_shardings",
-           "cache_shardings", "full", "local_shapes",
+           "cache_shardings", "full", "local_shapes", "lower_cell",
            "opt_shardings", "param_shardings", "place_batch", "place_opt",
-           "place_params", "prefill_fn", "rules_for",
+           "place_params", "prefill_fn", "replace_params", "rules_for",
            "serve_fn", "train_fn"]

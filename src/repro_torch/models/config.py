@@ -86,9 +86,11 @@ class ArchConfig:
     scan_layers: bool = True     # lax.scan over layer stacks
     decode_combine: str = "allgather"  # seq-sharded KV combine: allgather|flash
     loss_chunk: int = 512        # chunked cross-entropy sequence chunk
-    unroll_scans: bool = False   # python-unroll inner seq scans (dry-run
-    #                              calibration: XLA cost_analysis counts
-    #                              while bodies ONCE; see launch/dryrun.py)
+    unroll_scans: bool = False   # the reference's dry-run calibration
+    #                              (XLA counts a while body once); kept for
+    #                              parity: the port runs every layer and
+    #                              chunk eagerly, and its dry run counts
+    #                              them all (launch/dryrun.py)
 
     # ------------------------------------------------------------------
     @property

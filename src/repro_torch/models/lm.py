@@ -313,8 +313,10 @@ def logits_for(params, cfg: ArchConfig, hidden: torch.Tensor
                ) -> torch.Tensor:
     """hidden (B, S, D) -> logits (B, S, V) (float32, softcapped)."""
     h = blocks.apply_norm(params["final_norm"], cfg, hidden)
-    w = (params["embed"]["table"].T if cfg.tie_embeddings
-         else params["head"]["w"])
+    # a tied table's gradient comes back laid out as the table, to add to
+    # the embedding's (`nn.embedding`)
+    w = (sharding.grad_layout(params["embed"]["table"]).T
+         if cfg.tie_embeddings else params["head"]["w"])
     logits = sharding.constrain((h @ w.to(h.dtype)).float(),
                                 "batch", None, "vocab")
     if cfg.logit_softcap:
@@ -330,10 +332,14 @@ def _device(params) -> torch.device:
 def _chunk_nll(params, cfg: ArchConfig, hidden: torch.Tensor,
                labels: torch.Tensor, mask: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(sum of masked -log p(label), sum of mask) over one sequence chunk."""
+    """(sum of masked -log p(label), sum of mask) over one sequence chunk.
+    On a mesh that splits the vocab, the label's logit is a pending sum
+    over the vocab's ranks, reduced before anything else touches it:
+    DTensor's rule for it fails on a select or an elementwise op."""
     logits = logits_for(params, cfg, hidden)            # (B, C, V) float32
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    ll = sharding.constrain(torch.gather(logits, -1, labels[..., None]),
+                            "batch", None, None)[..., 0]
     return torch.sum((lse - ll) * mask), torch.sum(mask)
 
 

@@ -99,6 +99,9 @@ def _groups(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     if tokens % group:
         raise ValueError(f"{tokens} tokens do not split into MoE groups of "
                          f"{group}")
+    # the sequence gathered first where it is split (as `nn.dense` does):
+    # torch 2.11's DTensor refuses to flatten a split inner dim
+    x = nn.gathered_rows(x)
     return sharding.constrain(x.reshape(tokens // group, group, d),
                               "batch", None, None)
 

@@ -156,10 +156,16 @@ def time_mix(p, cfg: ArchConfig, x: torch.Tensor,
     xs = _token_shift(x, shift)
     delta = (xs - x).float()
 
-    # data-dependent token-shift mixes (one per r/k/v/w/g), float32
+    # data-dependent token-shift mixes (one per r/k/v/w/g), float32; on a
+    # mesh DTensor may split the 5 x lora dim where 5 mixes do not split,
+    # forward and backward (the gradient comes back laid out as `la`)
     la = torch.tanh(nn.dense(p["mix_lora_a"], x, dtype=f32))
-    la = la.reshape(b, t, len(_MIX_KEYS), cfg.rwkv_lora)
-    dyn = torch.einsum("btml,mld->btmd", la, p["mix_lora_b"].float())
+    la = sharding.grad_layout(
+        sharding.unflatten(la, 2, (len(_MIX_KEYS), cfg.rwkv_lora)))
+    # the einsum flattens (b, t) forward and backward: a split sequence is
+    # gathered first (torch 2.11's DTensor refuses to flatten it)
+    dyn = nn.rows_gathered_grad(torch.einsum(
+        "btml,mld->btmd", nn.gathered_rows(la), p["mix_lora_b"].float()))
     mixes = p["mix_base"].float()[None, None] + dyn               # (B,T,5,D)
     xi = x.float()[:, :, None, :] + mixes * delta[:, :, None, :]
     xr, xk, xv, xw, xg = (xi[:, :, i, :].to(x.dtype)

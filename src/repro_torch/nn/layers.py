@@ -4,7 +4,7 @@ parameter container the LM modules use.
 Port of `repro.nn.layers` (the parts the LM serving path needs).  On a
 device mesh the tensors are DTensors; `dense` gathers a sequence split
 over ranks before its product, and its output gradient's in the backward
-(`_gathered_rows`): DTensor refuses to flatten a split inner dim.  A layer is
+(`gathered_rows`): DTensor refuses to flatten a split inner dim.  A layer is
 a function of a parameter dict and an input, as in the JAX package, so the
 model code reads like its reference.  Initializers draw from a
 `torch.Generator` and create tensors on the default device, which the
@@ -20,6 +20,8 @@ from typing import Callable
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from ..parallel.sharding import grad_layout
 
 Initializer = Callable[[torch.Generator, tuple[int, ...]], torch.Tensor]
 
@@ -97,13 +99,13 @@ def dense(p, x: torch.Tensor, *, dtype: torch.dtype | None = None
         common = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(common), w.to(common)
     y = x @ w if not isinstance(x, DTensor) else \
-        _RowsGatheredGrad.apply(_gathered_rows(x) @ w)
+        rows_gathered_grad(gathered_rows(x) @ w)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
 
 
-def _gathered_rows(x: torch.Tensor) -> torch.Tensor:
+def gathered_rows(x: torch.Tensor) -> torch.Tensor:
     """`x` with any shard of a dim between its first and its last gathered
     (a DTensor whose sequence is split over ranks, the stored residual
     stream): a product flattens the leading dims, and DTensor refuses to
@@ -118,6 +120,13 @@ def _gathered_rows(x: torch.Tensor) -> torch.Tensor:
     return x.redistribute(x.device_mesh, want)
 
 
+def rows_gathered_grad(y: torch.Tensor) -> torch.Tensor:
+    """`y`, and in the backward its gradient with any split dim between its
+    first and its last gathered (`gathered_rows`): for a product whose
+    backward flattens the leading dims of its output's gradient."""
+    return _RowsGatheredGrad.apply(y) if isinstance(y, DTensor) else y
+
+
 class _RowsGatheredGrad(torch.autograd.Function):
     """Identity whose backward gathers a gradient's split inner dims (the
     product's backward flattens its output gradient as its forward
@@ -129,7 +138,7 @@ class _RowsGatheredGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _gathered_rows(g)
+        return gathered_rows(g)
 
 
 # --- norms -------------------------------------------------------------------
@@ -175,5 +184,13 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int, *,
 
 
 def embedding(p, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of the table for integer `tokens` (any shape)."""
-    return p["table"][tokens]
+    """Rows of the table for integer `tokens` (any shape).  On a mesh
+    through `F.embedding`: torch 2.11's DTensor has no working rule for
+    the backward of an index (an `index_put` of batch-split indices), and
+    has one for the embedding's; its gradient comes back laid out as the
+    table (`grad_layout`), so that a tied head's gradient adds to it (2.11
+    cannot turn a shard into a pending sum)."""
+    table = p["table"]
+    if isinstance(table, DTensor) or isinstance(tokens, DTensor):
+        return torch.nn.functional.embedding(tokens, grad_layout(table))
+    return table[tokens]

@@ -32,7 +32,7 @@ In order, and any failure exits non-zero:
      channel kernels at the channel path's shapes (16 envs), the fleet's
      channel sub-fleet's (8 envs), the split paths' (a channel_wm x-slab
      of 3 ranks; dg_derivative3 and smagorinsky_nut also on a 24-DOF
-     x-slab of 2) and beyond
+     x-slab of 2 and a 24-DOF pencil block of 2 x 2) and beyond
      (dg_derivative3 on both instances, the tiled one at every n from 2 to
      8 and C from 1 to 5; smagorinsky_nut on the strided views it reads in
      place, aligned or not, and a stride-0 C_s); flash
@@ -59,10 +59,11 @@ In order, and any failure exits non-zero:
      (CUDA events), `call_ms`; the same two for the plain version and,
      where one PyTorch call computes the same function, for that call; and
      the bound, from the bytes and operations the call needs; for the fused
-     RHS both instances at 24-DOF and 32-DOF in float32 and bf16, and the
+     RHS both instances at 24-DOF and 32-DOF in float32, and the
      device kernels in the trace of 50 calls (the cluster kernel alone);
      for flash
-     attention at both hymba shapes also the float32 CUDA-core instance,
+     attention at hymba's windowed layers also the float32 CUDA-core
+     instance,
      and the device kernels in the trace of five bf16 calls (the
      tensor-core kernel alone); the linear scan's two instances side by
      side at hymba's prefill and the step instance at decode; the wall
@@ -146,27 +147,41 @@ In order, and any failure exits non-zero:
      the rows one env off outside it), and env-steps/s beside that
      iteration's; then hit_les_24dof with its 16 envs each split over 2
      ranks by its x-slabs (`FleetConfig(elem_axis="model")` on a (data 1,
-     model 2) mesh, `split_rank`, episodes cut to 5 RL steps): one RL
+     model 2) mesh, `split_rank`, episodes cut to 3 RL steps): one RL
      interval of 16 bank rows under a fixed C_s field within TOL_SPLIT of
      the same staged assembly in one process and within TOL of the fused
      kernel path (the state one env off outside TOL_SPLIT), one in bf16
      within the bf16 TOL of the same assembly in bf16 in one process, then
      one PPO iteration (no evaluation) that launches dg_derivative3
-     (tiled) and smagorinsky_nut exactly 325 times a rank and the fused
+     (tiled) and smagorinsky_nut exactly 195 times a rank and the fused
      RHS never, params and Adam state bitwise on both ranks, return_norm
      in [-1, 1], the step-0 rows within TOL_FLEET_ROWS of one process's
      first RL step of the same assembly; the ranks' times, the halo
      exchanges' and the gathers' seconds and bytes, and env-steps/s beside
      the HIT path's; then channel_wm and burgers_96dof, 16 envs each, every
      env split over 3 ranks by its element axis (a (data 1, model 3) mesh,
-     `split3_rank`, episodes cut to 5 RL steps): for each one RL interval
+     `split3_rank`, episodes cut to 2 RL steps): for each one RL interval
      within TOL_SPLIT of the same assembly in one process and within TOL of
      the unsplit path (the state one env off outside TOL_SPLIT), one PPO
-     iteration (no evaluation) with exact launches a rank (the channel 650
+     iteration (no evaluation) with exact launches a rank (the channel 260
      each of dg_derivative3 (tiled), smagorinsky_nut and wall_model_tau,
      Burgers none), params and Adam state bitwise on the 3 ranks,
      return_norm in [-1, 1], and each rank's exchanges and env-steps/s
-     beside one process's rollout of the same cut episode;
+     beside one process's rollout of the same cut episode; then
+     hit_les_24dof with its 16 envs each split over a (data 1, mx 2, my
+     2) pencil of 4 ranks, x-slabs over "mx" and y-slabs over "my"
+     (`pencil_rank`, one torchrun start): the split run's inputs, one RL
+     interval within TOL_SPLIT of its one-process staged interval and
+     within TOL of the fused kernel path, one in bf16 within the bf16 TOL
+     of its one-process bf16 interval, dg_derivative3 (tiled) and
+     smagorinsky_nut launched 65 times a rank per interval and the fused
+     RHS never; the dry run's MDP step (`launch.dryrun.hit_mdp_step`) on
+     the 4 ranks, u_next within TOL_SPLIT and the reward within
+     TOL_FLEET_ROWS of the same step in one process, its halo and gather
+     bytes and face rolls per mesh dim equal those of the dry run of the
+     same step on a fake (1, 2, 2) "cuda" mesh, which a fake (1, 4, 1)
+     x-only mesh must not give (each control, the state one env off,
+     outside its pin);
      hymba-1.5b serving (bf16 weights from a seed,
      `lm.greedy_generate` of 32 new tokens for 4 prompts of 2,048 Zipf
      tokens, then for 4 of 700) must launch flash_attention 32 times, all on
@@ -351,7 +366,8 @@ TOL_SPLIT = 2e-6
 SPLIT_ROWS = 16  # envs of each split run, the HIT path's
 # RL steps of an episode where a run cuts it, from 50 (hit_les_24dof), 20
 # (channel_wm) and 50 (burgers_96dof), to keep the run inside its limit
-# (hit_les_24dof's split run from 10 to 5 since the dry-run phase came):
+# (hit_les_24dof's split run from 10 to 5 since the dry-run phase came,
+# to 3 since the pencil phase came):
 # the split runs (every split RHS exchanges its faces through the host),
 # and the channel and Burgers scenarios wherever they train (`FLEET_CUT`:
 # the channel path, the fleet in one process and over 3 ranks).  Both are
@@ -359,9 +375,18 @@ SPLIT_ROWS = 16  # envs of each split run, the HIT path's
 # 8 envs took 2.6 s on the H100): at 20 and 50 steps their episodes set
 # most of the channel path's and the fleet's time.  The gates read an episode's first
 # step's rows or count launches per step, so no gate's data changes.
-CUT_STEPS = {"hit_les_24dof": 5, "channel_wm": 5, "burgers_96dof": 5}
+CUT_STEPS = {"hit_les_24dof": 3, "channel_wm": 5, "burgers_96dof": 5}
+# the channel's and Burgers' episodes where they split over 3 ranks
+# (`split3_rank`): cut from 5 to 2 RL steps to pay for the pencil phase
+SPLIT3_STEPS = 2
 FLEET_CUT = ("channel_wm", "burgers_96dof")
 SPLIT3_NAMES = ("channel_wm", "burgers_96dof")  # split over 3 ranks
+# the pencil phase (`pencil_phase`): hit_les_24dof's envs split over 4
+# ranks of a (data, mx, my) mesh, x-slabs over "mx" and y-slabs over "my"
+# (the dry run's HIT cell, `core.collectives.PencilSplit`); its control
+# in the dry run splits x-slabs over 4 ranks ("my" of one rank)
+PENCIL_MESH = (1, 2, 2)
+PENCIL_CONTROL = (4, 1)
 FLEET_NAMES = ("hit_les_24dof", "channel_wm", "burgers_96dof")
 
 
@@ -676,12 +701,12 @@ def zero_counts(counters: list) -> None:
             fn.instance_launches[key] = 0
 
 
-def cut_env(name: str):
-    """The registered env `name` with its episodes cut to
-    `CUT_STEPS[name]` RL steps."""
+def cut_env(name: str, steps: int | None = None):
+    """The registered env `name` with its episodes cut to `steps` RL steps
+    (default `CUT_STEPS[name]`)."""
     from repro_torch import envs
 
-    return envs.make(name, t_end=CUT_STEPS[name]
+    return envs.make(name, t_end=(steps or CUT_STEPS[name])
                      * envs.make(name).cfg.dt_rl)
 
 
@@ -949,12 +974,13 @@ def rank_worker(kind: str, out: str, ckpt: str = "") -> int:
     (hit_les_24dof, 16 envs, one iteration), the fleet (`FLEET_NAMES` at
     32 envs, at least 8 each, one synchronous iteration), one
     hit_les_24dof env split over the ranks by its x-slabs (`split_rank`)
-    or channel_wm and burgers_96dof envs split over them by their element
-    axis (`split3_rank`), each through its entry point over the ranks'
-    mesh, every launch count 0 before it and read after.  The ranks' records, launch counts, launch counts by
-    instance, the batch of every rollout they ran and state digests are
-    gathered; rank 0 writes them as JSON to `out` (and the fleet's
-    first-step rows to `out`.pt)."""
+    or by its (mx, my) pencil (`pencil_rank`), or channel_wm and
+    burgers_96dof envs split over them by their element axis
+    (`split3_rank`), each through its entry point over the ranks' mesh,
+    every launch count 0 before it and read after.  The ranks' records,
+    launch counts, launch counts by instance, the batch of every rollout
+    they ran and state digests are gathered; rank 0 writes them as JSON
+    to `out` (and the fleet's first-step rows to `out`.pt)."""
     if kind == "mesh":
         return mesh_rank(out)
     import torch
@@ -991,6 +1017,8 @@ def rank_worker(kind: str, out: str, ckpt: str = "") -> int:
     elif kind == "split3":
         with patched(rollout_lib, "rollout", batch):
             split3_rank(ckpt, out, counters, result)
+    elif kind == "pencil":
+        pencil_rank(ckpt, out, counters, result)
     elif kind == "rl_train":
         captured = []
 
@@ -1110,8 +1138,7 @@ def split_rank(ckpt: str, out: str, counters: list, result: dict):
         return trajs[-1]
 
     orch.sample_fleet = kept
-    split.halo_s = split.gather_s = 0.0
-    split.halo_bytes = split.gather_bytes = 0
+    split.reset()
     zero_counts(counters)
     t0 = time.perf_counter()
     result["records"] = runner.train(1, resume=False)
@@ -1128,7 +1155,7 @@ def split_rank(ckpt: str, out: str, counters: list, result: dict):
 
 def split3_rank(ckpt: str, out: str, counters: list, result: dict) -> None:
     """One rank of channel_wm and of burgers_96dof (`SPLIT3_NAMES`,
-    episodes cut to `CUT_STEPS`), each with 16 envs split over a (data 1,
+    episodes cut to `SPLIT3_STEPS`), each with 16 envs split over a (data 1,
     model 3) mesh by its first element axis (`FleetConfig(elem_axis=
     "model")`): first one RL interval of its first 16 bank rows under a
     fixed action (rank 0 writes the inputs and the gathered state to
@@ -1151,7 +1178,7 @@ def split3_rank(ckpt: str, out: str, counters: list, result: dict) -> None:
     mesh = mesh_lib.make_fleet_mesh(model=3)
     result["envs"], total = {}, [0] * len(counters)
     for name in SPLIT3_NAMES:
-        runner = Runner(cut_env(name),
+        runner = Runner(cut_env(name, SPLIT3_STEPS),
                         FleetConfig(n_envs=SPLIT_ROWS, elem_axis="model"),
                         run_cfg=RunnerConfig(
                             eval_every=10**6, checkpoint_every=10**6,
@@ -1172,8 +1199,7 @@ def split3_rank(ckpt: str, out: str, counters: list, result: dict) -> None:
         if dist.get_rank() == 0:
             torch.save({"rows": rows.cpu(), "action": action.cpu(),
                         "u": u.cpu()}, f"{out}.{name}.pt")
-        split.halo_s = split.gather_s = 0.0
-        split.halo_bytes = split.gather_bytes = 0
+        split.reset()
         result["batches"] = []
         zero_counts(counters)
         t0 = time.perf_counter()
@@ -1196,11 +1222,82 @@ def split3_rank(ckpt: str, out: str, counters: list, result: dict) -> None:
                          for b in r["batches"]]
 
 
+def pencil_rank(inputs: str, out: str, counters: list, result: dict) -> None:
+    """One rank of hit_les_24dof with every env split over a `PENCIL_MESH`
+    (data, mx, my) mesh: x-slabs over "mx", y-slabs over "my"
+    (`core.collectives.pencil_split`).  The inputs are the
+    split run's (`split_rank` wrote them to `inputs`: its 16 bank rows
+    and its fixed C_s field).  One RL interval of them in float32 and one
+    in bf16, then the dry run's MDP step (`launch.dryrun.hit_mdp_step`:
+    observe, the seeded policy's mean action, `cfd/env.step` with its
+    reward) on the rank's block, every launch count 0 before each, and
+    the step's exchanges counted from 0 (the pencil's rolls per axis).
+    Rank 0 writes the gathered states and the reward to `out`.pencil.pt."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch
+    from repro_torch import envs
+    from repro_torch.cfd import solver
+    from repro_torch.core import collectives
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.kernels import dg_derivative, rhs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.init_distributed()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = init_device_mesh("cuda", PENCIL_MESH,
+                            mesh_dim_names=("data", "mx", "my"))
+    split = collectives.pencil_split(mesh, "mx", "my")
+    env = envs.make("hit_les_24dof")
+    cfg = env.cfg
+    data = torch.load(inputs)
+    rows, cs = data["rows"].to(dev), data["cs"].to(dev)
+    u, cs = split.slab(rows, 1), split.slab(cs, 1)
+    got, total = {}, [0] * len(counters)
+
+    def counted(key: str) -> None:
+        torch.cuda.synchronize()
+        result[f"launches_{key}"] = [fn.launches for fn in counters]
+        result[f"instances_{key}"] = [
+            dict(rhs.fused_navier_stokes_rhs.instance_launches),
+            dict(dg_derivative.dg_derivative3.instance_launches)]
+        total[:] = [a + b for a, b in zip(total, result[f"launches_{key}"])]
+
+    for precision in ("fp32", "bf16"):
+        zero_counts(counters)
+        u_next = solver.advance_rl_interval(
+            u, cs, dataclasses.replace(cfg, precision=precision), split)
+        counted(precision)
+        got[f"u_{precision}"] = split.gather(u_next, 1)
+    policy = policy_lib.Policy(policy_lib.PolicyConfig(
+        n_nodes=cfg.n_poly + 1, cs_max=cfg.cs_max)).to(dev)
+    e_dns = env.e_dns(dev)
+    split.reset()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    with torch.no_grad(), repro_torch.conv_precision():
+        u_next, reward = dryrun.hit_mdp_step(policy, u, e_dns, cfg, split)
+    counted("step")
+    result["step_s"] = time.perf_counter() - t0
+    result["exchanges"] = {
+        "halo_s": split.halo_s, "halo_bytes": split.halo_bytes,
+        "gather_s": split.gather_s, "gather_bytes": split.gather_bytes,
+        "rolls": {"mx": split.x.rolls, "my": split.y.rolls}}
+    got["u_next"], got["reward"] = split.gather(u_next, 1), reward
+    result["launches"] = total
+    result["pencil"] = [split.x.rank, split.y.rank]
+    if dist.get_rank() == 0:
+        torch.save({k: v.cpu() for k, v in got.items()}, out + ".pencil.pt")
+
+
 def split_phase(names: list, card: str, tmp: str, hit_one: list) -> dict:
     """(d) of `distributed_phase`: hit_les_24dof with 16 envs, each split
     over 2 ranks by its x-slabs (`split_rank`; episodes cut to
     `CUT_STEPS`).  Gates: the ranks' PPO iteration launches
-    dg_derivative3 (tiled) and smagorinsky_nut exactly 325 times each a
+    dg_derivative3 (tiled) and smagorinsky_nut exactly 195 times each a
     rank and the fused RHS never; params and Adam state bitwise on both
     ranks; return_norm in [-1, 1]; the split RL interval within TOL_SPLIT
     of the same staged assembly in one process and within TOL of the fused
@@ -1211,7 +1308,8 @@ def split_phase(names: list, card: str, tmp: str, hit_one: list) -> dict:
     process's rollout of the same assembly (one RL step of the same draws
     and initial policy), and the rows one env off outside it.  Prints the
     ranks' times and exchanges and env-steps/s beside one process's
-    (`hit_one`: the records of the HIT path's unsplit iterations)."""
+    (`hit_one`: the records of the HIT path's unsplit iterations).  Its
+    inputs and one-process intervals (`refs`) serve `pencil_phase`."""
     import torch
 
     from repro_torch.cfd import solver
@@ -1330,17 +1428,20 @@ def split_phase(names: list, card: str, tmp: str, hit_one: list) -> dict:
           f"{SPLIT_ROWS} envs in {t_step:.3f} s (the first of its shape)")
     return {"wall_s": wall, "ranks": got["ranks"], "interval_err": err,
             "interval_err_bf16": err16, "env_steps_per_s": rate,
-            "one_rank_env_steps_per_s": one, "one_step_s": t_step}
+            "one_rank_env_steps_per_s": one, "one_step_s": t_step,
+            "refs": {"inputs": out + ".interval.pt", "rows": rows, "cs": cs,
+                     "u_same": u_same, "u_fused": u_fused,
+                     "u_same16": u_same16}}
 
 
 def split3_phase(names: list, card: str, tmp: str) -> dict:
     """(e) of `distributed_phase`: channel_wm and burgers_96dof, 16 envs
     each, every env split over 3 ranks by its first element axis
-    (`split3_rank`; episodes cut to `CUT_STEPS`).  Gates, for each: the
+    (`split3_rank`; episodes cut to `SPLIT3_STEPS`).  Gates, for each: the
     split RL interval within TOL_SPLIT of the same assembly in one process
     and within TOL of the unsplit path, the state one env off outside
     TOL_SPLIT; every rank's launches exact (the channel's interval 130 and
-    iteration 650 of dg_derivative3 (tiled), smagorinsky_nut and
+    iteration 260 of dg_derivative3 (tiled), smagorinsky_nut and
     wall_model_tau a rank; Burgers none of any kernel) and their sum over
     the ranks (all-reduced); params and Adam state bitwise on the 3 ranks;
     return_norm in [-1, 1].  Prints the ranks' times, exchanges and
@@ -1360,7 +1461,7 @@ def split3_phase(names: list, card: str, tmp: str) -> dict:
     dev = torch.device("cuda", 0)
     readings, want_sum = {}, [0] * len(names)
     for name in SPLIT3_NAMES:
-        env = cut_env(name)
+        env = cut_env(name, SPLIT3_STEPS)
         cfg = env.cfg
         interval = cfg.n_substeps * 5
         chan = name.startswith("channel")
@@ -1447,6 +1548,170 @@ def split3_phase(names: list, card: str, tmp: str) -> dict:
         raise AssertionError(f"split3: summed launches {got['launches_sum']}"
                              f", expected {want_sum}")
     return {"wall_s": wall, "ranks": got["ranks"], "envs": readings}
+
+
+def pencil_phase(names: list, card: str, tmp: str, refs: dict) -> dict:
+    """(f) of `distributed_phase`: hit_les_24dof's SPLIT_ROWS envs, each
+    split over a `PENCIL_MESH` (data 1, mx 2, my 2) pencil of 4 ranks
+    (`pencil_rank`, one torchrun start), on `split_phase`'s inputs; meanwhile
+    in this process the dry run (`launch.dryrun.run_relexi_cell`) of the
+    same MDP step on a fake (1, 2, 2) "cuda" mesh and, the control, on a
+    fake (1, 4, 1) one (x-slabs over 4 ranks).  Gates:
+    P1: the float32 RL interval within TOL_SPLIT of the same staged
+        assembly in one process (`refs`) and within TOL of the fused kernel
+        path; the state one env off outside TOL_SPLIT;
+    P2: the bf16 RL interval within the bf16 TOL of the same staged
+        assembly in bf16 in one process; the state one env off outside it;
+    P3: on every rank, each of the two intervals and the MDP step launch
+        dg_derivative3 (tiled) and smagorinsky_nut exactly n_substeps x 5
+        times, the fused RHS never;
+    P4: the MDP step's u_next within TOL_SPLIT and its reward within
+        TOL_FLEET_ROWS of the same step in one process (a pencil of one
+        rank each way); u_next one env off outside TOL_SPLIT; every rank's
+        halo and gather bytes and its face rolls per mesh dim equal the
+        (1, 2, 2) dry run's (its split's bytes, the rolls its Recorder
+        saw), and the x-only dry run must differ.
+    Prints every reading with the card; returns them."""
+    import torch
+
+    import repro_torch
+    from repro_torch import envs
+    from repro_torch.core import collectives
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.launch import dryrun
+
+    env = envs.make("hit_les_24dof")
+    cfg = env.cfg
+    interval = cfg.n_substeps * 5
+    nproc = math.prod(PENCIL_MESH)
+    out = os.path.join(tmp, "pencil.json")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(torchrun, nproc,
+                            ["pencil", out, refs["inputs"]], 300)
+        t0 = time.perf_counter()
+        dry = {label: dryrun.run_relexi_cell(
+            env="hit_les_24dof", n_envs=SPLIT_ROWS, data=PENCIL_MESH[0],
+            pencil=pencil, save=False, device_type="cuda")
+            for label, pencil in (("pencil", PENCIL_MESH[1:]),
+                                  ("x only", PENCIL_CONTROL))}
+        t_dry = time.perf_counter() - t0
+        wall = ranks.result()
+    for label, rec in dry.items():
+        if rec["status"] != "ok":
+            raise AssertionError(f"P4: the {label} dry run failed: "
+                                 f"{rec.get('error')}")
+    got = read_ranks(out, nproc, "pencil")
+    print(f"hit_les_24dof, {SPLIT_ROWS} envs each split over a (data "
+          f"{PENCIL_MESH[0]}, mx {PENCIL_MESH[1]}, my {PENCIL_MESH[2]}) "
+          f"pencil of {nproc} ranks ({card}): {wall:.3f} s wall, torchrun "
+          f"included; the dry runs of its MDP step {t_dry:.1f} s beside it")
+    want = [0, interval, interval, 0, 0, 0]
+    want_instances = [{"cluster": 0, "two_pass": 0},
+                      {"tiled": interval, "generic": 0}]
+    for r in got["ranks"]:
+        ex = r["exchanges"]
+        print(f"  rank {r['rank']} ({r['backend']}, (mx, my) = "
+              f"{tuple(r['pencil'])}): launches "
+              + "; ".join(f"{k} {dict(zip(names, r[f'launches_{k}']))}, "
+                          f"dg_derivative3 by instance "
+                          f"{r[f'instances_{k}'][1]}"
+                          for k in ("fp32", "bf16", "step"))
+              + f"; the MDP step {r['step_s']:.3f} s, its face rolls "
+              f"{ex['rolls']} and box sums {ex['halo_s']:.3f} s, "
+              f"{ex['halo_bytes']} B received, its gathers "
+              f"{ex['gather_s']:.3f} s, {ex['gather_bytes']} B received; "
+              f"peak {r['peak_gib']:.3f} GiB")
+        if r["backend"] != "gloo":
+            raise AssertionError(f"pencil: backend {r['backend']}, ranks "
+                                 f"sharing one card need gloo")
+        for k in ("fp32", "bf16", "step"):
+            if r[f"launches_{k}"] != want or \
+                    r[f"instances_{k}"] != want_instances:
+                raise AssertionError(
+                    f"P3 pencil rank {r['rank']} {k}: launches "
+                    f"{r[f'launches_{k}']} {r[f'instances_{k}']}, expected "
+                    f"{want} {want_instances}")
+    print(f"  P3 ({card}): every rank launched dg_derivative3 (tiled) and "
+          f"smagorinsky_nut {interval} times per interval and per MDP step, "
+          f"the fused RHS 0")
+
+    dev = torch.device("cuda", 0)
+    data = {k: v.to(dev) for k, v in torch.load(
+        out + ".pencil.pt").items()}
+    label = (f"one 24-DOF RL interval of {SPLIT_ROWS} envs ({interval} RHS "
+             f"calls) over a (mx 2, my 2) pencil")
+    readings = {"wall_s": wall, "ranks": got["ranks"], "dry_s": t_dry}
+    readings["p1"] = parity(f"P1 {label} vs the same assembly in one "
+                            f"process", data["u_fp32"], refs["u_same"],
+                            TOL_SPLIT)
+    readings["p1_fused"] = parity(f"P1 {label} vs the fused kernel path",
+                                  data["u_fp32"], refs["u_fused"],
+                                  TOL["float32"])
+    readings["p2"] = parity(f"P2 {label} in bf16 vs the same staged "
+                            f"assembly in bf16 in one process",
+                            data["u_bf16"], refs["u_same16"],
+                            TOL["bfloat16"])
+
+    # P4: the same MDP step in one process, over a pencil of one rank
+    one = collectives.PencilSplit(collectives.ElemSplit(),
+                                  collectives.ElemSplit())
+    policy = policy_lib.Policy(policy_lib.PolicyConfig(
+        n_nodes=cfg.n_poly + 1, cs_max=cfg.cs_max)).to(dev)
+    with torch.no_grad(), repro_torch.conv_precision():
+        u_one, r_one = dryrun.hit_mdp_step(policy, refs["rows"],
+                                           env.e_dns(dev), cfg, one)
+    readings["p4_u"] = parity(f"P4 the dry run's MDP step over the pencil "
+                              f"vs one process, u_next", data["u_next"],
+                              u_one, TOL_SPLIT)
+    readings["p4_reward"] = parity(f"P4 the dry run's MDP step over the "
+                                   f"pencil vs one process, reward",
+                                   data["reward"], r_one, TOL_FLEET_ROWS)
+    controls = {}
+    for lbl, g, w, tol in (("P1", data["u_fp32"], refs["u_same"], TOL_SPLIT),
+                           ("P2", data["u_bf16"], refs["u_same16"],
+                            TOL["bfloat16"]),
+                           ("P4", data["u_next"], u_one, TOL_SPLIT)):
+        controls[lbl] = rel = ((g.roll(1, 0) - w).abs().max()
+                               / w.abs().max()).item()
+        print(f"    control, {lbl}'s state one env off: rel={rel:.3e}")
+        if not rel > tol:
+            raise AssertionError(f"pencil {lbl}: the gate cannot tell the "
+                                 f"state one env off")
+    readings["controls"] = controls
+
+    def exchanges(rec: dict) -> tuple:
+        return (rec["halo_bytes"], rec["gather_bytes"],
+                {d: n for d, n in rec["rolls_by_dim"].items() if n})
+
+    want_ex = exchanges(dry["pencil"])
+    for r in got["ranks"]:
+        ex = r["exchanges"]
+        rank_ex = (ex["halo_bytes"], ex["gather_bytes"],
+                   {d: n for d, n in ex["rolls"].items() if n})
+        if rank_ex != want_ex:
+            raise AssertionError(f"P4 rank {r['rank']}: exchanges "
+                                 f"{rank_ex}, the dry run's {want_ex}")
+    control_ex = exchanges(dry["x only"])
+    print(f"  P4 exchanges ({card}): every rank's (halo bytes, gather bytes, "
+          f"face rolls per mesh dim) {want_ex} equal the dry run's on a fake "
+          f"(1, 2, 2) cuda mesh; the control's on a fake (1, 4, 1) mesh "
+          f"(x only) {control_ex}: "
+          + ("equal: NOT rejected" if control_ex == want_ex else "rejected"))
+    if control_ex == want_ex:
+        raise AssertionError("P4: the x-only dry run's exchanges equal the "
+                             "pencil's")
+    for label, rec in dry.items():
+        print(f"  dry run of the MDP step, {label} {rec['mesh_shape']}: "
+              f"{rec['flops_per_dev']:.4g} FLOPs and "
+              f"{rec['collective_total_per_dev']:.0f} collective B a rank, "
+              f"peak {rec['peak_bytes_per_dev'] / 2**30:.4f} GiB, recorded "
+              f"run {rec['t_run_s']} s")
+    readings["dry"] = {k: {"exchanges": exchanges(v),
+                           "flops_per_dev": v["flops_per_dev"],
+                           "collective_total_per_dev":
+                               v["collective_total_per_dev"]}
+                       for k, v in dry.items()}
+    return readings
 
 
 def baselines(counters: list, eval_return: float, card: str) -> int:
@@ -1646,7 +1911,10 @@ def distributed_phase(counters: list, per_rollout: dict, card: str,
     one-process iteration's.  (d) hit_les_24dof with each env split over 2
     ranks by its x-slabs (`split_phase`, against `hit_one`, the HIT path's
     records).  (e) channel_wm and burgers_96dof with each env split over 3
-    ranks (`split3_phase`).  Returns the readings."""
+    ranks (`split3_phase`).  (f) hit_les_24dof with each env split over a
+    (mx 2, my 2) pencil of 4 ranks, held to (d)'s one-process intervals
+    and to the dry run of the same step (`pencil_phase`).  Returns the
+    readings."""
     import torch
 
     names = [fn.__name__ for fn in counters]
@@ -1737,6 +2005,10 @@ def distributed_phase(counters: list, per_rollout: dict, card: str,
 
         # (e) the channel and Burgers, every env split over 3 ranks
         readings["split3"] = split3_phase(names, card, tmp)
+
+        # (f) one env split over a (mx 2, my 2) pencil of 4 ranks
+        readings["pencil"] = pencil_phase(names, card, tmp,
+                                          readings["split"].pop("refs"))
     return readings
 
 
@@ -3411,8 +3683,9 @@ def mesh_phase(counters: list, card: str, whisper: dict, tmp: str) -> dict:
 
 
 # the dry run (phase 5, `dryrun_phase`): production cells through its CLI
-# on the (16, 16) mesh, each in a subprocess that sees no card, DRY_JOBS at
-# a time beside the phases that run meanwhile (`DryCells`)
+# on the (16, 16) mesh (the HIT cell on its (16, 4, 4) pencil mesh), each
+# in a subprocess that sees no card, DRY_JOBS at a time beside the phases
+# that run meanwhile (`DryCells`)
 DRY_CELLS = (("--arch", "hymba-1.5b", "--shape", "train_4k"),
              ("--arch", "hymba-1.5b", "--shape", "prefill_32k"),
              ("--arch", "hymba-1.5b", "--shape", "decode_32k"),
@@ -3663,7 +3936,7 @@ def _dry_matches(rec: dict, cell: tuple) -> bool:
     if cell[0] == "--relexi":
         return rec["kind"] == "rl_step" and rec["arch"].startswith(
             "relexi") and rec["shape"].endswith(
-            "_noelem" if "--no-elem-shard" in cell else "_elem4")
+            "_noelem" if "--no-elem-shard" in cell else "_elem16")
     if cell[0] == "--channel":
         return rec["arch"] == "channel-wm"
     return (rec["arch"], rec["shape"]) == (cell[1], cell[3])
@@ -4101,6 +4374,8 @@ def main() -> int:
                      ("tiled", "generic")),
                     ("HIT n=6 x-slab of 2", 16 * 32, 6, 4,
                      ("tiled", "generic")),
+                    ("HIT n=6 pencil block of 2 x 2", 16 * 16, 6, 4,
+                     ("tiled", "generic")),
                     ("n=9", 577, 9, 4, ("generic",))]
         dg_cases += [(f"n={nn} C={c}", b, nn, c, ("tiled",))
                      for nn in range(2, 9) for c in range(1, 6)
@@ -4129,9 +4404,10 @@ def main() -> int:
         # buffer, with a stride-0 C_s, and a point stride of 60 (more than
         # the kernel stages); P of the channel path (16 envs), of the
         # fleet's channel sub-fleet (8 envs), of a channel x-slab of 3
-        # ranks, of a 24-DOF x-slab of 2 and a ragged one
+        # ranks, of a 24-DOF x-slab of 2, of a 24-DOF pencil block of 2 x 2
+        # and a ragged one
         for p_pts in (p_nodes, p_nodes // 2, p_nodes // kx, 16 * 32 * 6**3,
-                      1007):
+                      16 * 16 * 6**3, 1007):
             for label, offset, s_p, cs_stride0 in (
                     ("contiguous", 0, 9, False),
                     ("rows of (P, 4, 3)", 0, 12, False),
@@ -4363,11 +4639,13 @@ def main() -> int:
     elapsed("phase 4: timing")
     record = {}
     # the fused RHS: the cluster instance (the path's), the two-pass one
-    # and the plain version at 24-DOF and 32-DOF, 16 envs, float32 and bf16
+    # and the plain version at 24-DOF and 32-DOF, 16 envs, float32 (the
+    # bf16 timings of PRs 14-28 were cut for time when the pencil phase
+    # came; phase 3 still holds both bf16 instances to the plain version)
     rhs_shapes = {"24-DOF": states[0], "32-DOF": states[3]}
     for label, (_, u16, cfg) in rhs_shapes.items():
         ops, kw = rhs_kwargs(cfg, dev)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32,):
             tname = str(dtype).split(".")[-1]
             ud = u16.to(dtype).contiguous()
             args = (ud, torch.full(ud.shape[:-1], 0.17, device=dev,
@@ -4592,9 +4870,11 @@ def main() -> int:
     if not names or any("flash_attention_tc_kernel" not in n_ for n_ in names):
         raise AssertionError(f"the bf16 flash_attention call launched "
                              f"{names}, not its tensor-core kernel alone")
+    # the windowed layers (28 of 32) only: the global layers' timing was
+    # cut for time when the pencil phase came (phase 3 holds them to the
+    # plain version)
     for label, window, mask in (("window 1024 (28 layers)", win,
-                                 ones.tril() & ~ones.tril(-win)),
-                                ("global (4 layers)", None, ones.tril())):
+                                 ones.tril() & ~ones.tril(-win)),):
         print(f"time per call ({card}), flash_attention {label} q "
               f"{tuple(q.shape)} kv {tuple(k.shape)} bf16 (float32 for the "
               f"CUDA-core instance):")
@@ -4622,9 +4902,8 @@ def main() -> int:
               f"x); {100 * bound[0] / tc:.3f}% of the bound's speed "
               f"({bound[0]:.7f} ms by {bound[1]}); CUDA-core float32 "
               f"instance {ms['kernel float32 (CUDA cores)']:.7f} ms")
-        if window:
-            record["flash_attention"] = dict(
-                ms=ms, call_ms=call_ms, library_ms=lib, bound=bound)
+        record["flash_attention"] = dict(
+            ms=ms, call_ms=call_ms, library_ms=lib, bound=bound)
     del q32, k32, v32
 
     n, rows = lm_cfg.ssm_state, b * hq
@@ -4778,7 +5057,9 @@ def main() -> int:
                        ("fleet over 3 ranks", "fleet"),
                        ("hit_les_24dof split over 2 ranks", "split"),
                        ("channel_wm and burgers_96dof split over 3 ranks",
-                        "split3")):
+                        "split3"),
+                       ("hit_les_24dof over a (1, 2, 2) pencil of 4 ranks",
+                        "pencil")):
         summed = [sum(r["launches"][i] for r in ranked[key]["ranks"])
                   for i in range(4)]
         for name, n_ in zip(names[:4], summed):

@@ -18,10 +18,12 @@ left-face indexing, periodic by default (a roll), non-periodic when
 `lo_value` overrides element 0's left face.  `dg_gradient`/`dg_divergence`
 take an optional per-direction `bc` tuple built on these helpers.
 
-A mesh split over ranks by its x-slabs (`core.collectives.ElemSplit`,
-passed as `split`) takes every periodic roll along x through the split's
-`roll`, which fetches the wrapped face slab from the neighbouring rank;
-with `split=None` the roll is `torch.roll`.
+A mesh split over ranks (`split`: its x-slabs, `core.collectives.
+ElemSplit`, or x- and y-slabs, a `PencilSplit`) takes every periodic roll
+along a split direction through that direction's split
+(`split.along(direction)`), whose `roll` fetches the wrapped face slab
+from the neighbouring rank; a direction that is not split, and every
+direction with `split=None`, rolls by `torch.roll`.
 """
 from __future__ import annotations
 
@@ -91,9 +93,11 @@ def _face_slices(u: torch.Tensor, direction: int):
 def _roll(x: torch.Tensor, shifts: int, axis: int, direction: int,
           split) -> torch.Tensor:
     """The periodic roll of a face array along `direction`'s element axis:
-    through `split` along a split x, else `torch.roll`."""
-    if split is not None and direction == 0:
-        return split.roll(x, shifts, axis)
+    through the split of that direction where `split` splits it, else
+    `torch.roll`."""
+    along = split.along(direction) if split is not None else None
+    if along is not None:
+        return along.roll(x, shifts, axis)
     return torch.roll(x, shifts=shifts, dims=axis)
 
 
@@ -159,7 +163,7 @@ def dg_gradient(q: torch.Tensor, dg: DGParams | None, d_matrix: torch.Tensor,
     """BR1-style DG gradient of nodal field q (..., K,K,K, n,n,n, C) with
     central interface values; returns (..., C, 3).  `bc[d]` is None
     (periodic) or `(q_lo, q_hi)` prescribed boundary face states; `split`
-    the x-slab split of a periodic x."""
+    the split of the periodic directions it splits (x, or x and y)."""
     jacs = _per_direction_jac(dg, jac)
     grads = []
     for d in range(3):

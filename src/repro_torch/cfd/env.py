@@ -34,7 +34,8 @@ class StepResult(NamedTuple):
 
 def observe(u: torch.Tensor, cfg: HITConfig, split=None) -> torch.Tensor:
     """Element-local observations: (..., K^3, n, n, n, 3).  With `split`
-    (u this rank's x-slabs) the whole env's, gathered along x."""
+    (u this rank's block: x-slabs, or x- by y-slabs) the whole env's,
+    gathered by the split."""
     _, vel, _, _ = conservative_to_primitive(u)
     if split is not None:
         vel = split.gather(vel, dim=vel.ndim - 7)
@@ -65,11 +66,13 @@ def step(state: EnvState, action: torch.Tensor, cfg: HITConfig,
     reverts to the previous state and the agent receives the reward floor
     (-1), so NaN never reaches the gradient.
 
-    With `split` (`core.collectives.ElemSplit`) the state is this rank's
-    x-slabs of each env and the action the whole env's: the rank advances
-    its slabs under its slabs of C_s, the guard's flag is the minimum over
-    the ranks (every rank reverts the same rows), and one gather of the
-    velocity along x gives the reward's spectrum and the observation."""
+    With `split` (`core.collectives.ElemSplit` or `PencilSplit`) the
+    state is this rank's block of each env (its x-slabs, or x- by
+    y-slabs) and the action the whole env's: the rank advances its block
+    under its block of C_s (`split.slab`), the guard's flag is the minimum
+    over every rank of the split (every rank reverts the same rows), and
+    one gather of the velocity (`split.gather`) gives the reward's
+    spectrum and the observation."""
     cs = torch.clamp(action, 0.0, cfg.cs_max).reshape(
         tuple(action.shape[:-1]) + (cfg.n_elem,) * 3)
     if split is not None:

@@ -147,7 +147,8 @@ def kernel_grad_nut(q_prim: torch.Tensor, cs_nodes: torch.Tensor,
     component kernels: `dg_derivative3` gives the volume derivatives that
     `dgsem.dg_gradient` lifts (with `dg` / `jac` / `bc` / `split` as it
     takes them), then `smagorinsky_nut` the eddy viscosity.  Both kernels
-    are element-local, so they run on an x-slab as on a whole mesh.  Each
+    are element-local, so they run on a rank's block of a split mesh (its
+    x-slabs, or its x- by y-slabs) as on a whole mesh.  Each
     kernel's wrapper takes its plain version for CPU tensors."""
     n, c = q_prim.shape[-2], q_prim.shape[-1]
     vols = dg_derivative.dg_derivative3(
@@ -181,14 +182,16 @@ def navier_stokes_rhs(u: torch.Tensor, cs_nodes: torch.Tensor,
     which are `plain_gradients` / `plain_divergence` / `plain_forcing` of
     kernels/rhs.py.
 
-    On a mesh split over ranks by its x-slabs (`split`, a
-    `core.collectives.ElemSplit`; u is this rank's slabs) the fused kernel
-    cannot run: it wraps whole periodic meshes and takes whole-box means
-    inside.  There `use_kernels` means the channel's staged assembly:
-    `kernel_grad_nut` (the `dg_derivative3` and `smagorinsky_nut` kernels,
-    one launch each), then `plain_divergence` and the forcing, their
-    x-faces and box sums exchanged through `split`; in bf16 the staged
-    parts run in bf16, as the unsplit staged assembly does.
+    On a mesh split over ranks (`split`: by its x-slabs, a
+    `core.collectives.ElemSplit`, or by x- and y-slabs, a `PencilSplit`;
+    u is this rank's block) the fused kernel cannot run: it wraps whole
+    periodic meshes and takes whole-box means inside.  There
+    `use_kernels` means the channel's staged assembly: `kernel_grad_nut`
+    (the `dg_derivative3` and `smagorinsky_nut` kernels, one launch each
+    on the rank's block), then `plain_divergence` and the forcing, the
+    faces of each split direction and the box sums exchanged through
+    `split`; in bf16 the staged parts run in bf16, as the unsplit staged
+    assembly does.
     """
     kw = dict(inv_w_end=ops["inv_w_end"], jac=cfg.dg.jac,
               delta=cfg.delta_filter, forcing_a0=cfg.forcing_a0,
@@ -234,7 +237,7 @@ def advance_rl_interval(u: torch.Tensor, cs_elem: torch.Tensor,
     """Advance the LES by Delta t_RL under fixed per-element C_s (one MDP
     transition).  With `cfg.precision == "bf16"` the state is advanced in
     bfloat16 and cast back to float32 at the end.  With `split` u and
-    cs_elem are this rank's x-slabs of a split mesh."""
+    cs_elem are this rank's block of a split mesh (`navier_stokes_rhs`)."""
     dtype = cfg.compute_dtype
     # the operator matrices follow the compute dtype, as in the reference
     ops = cfg.operators(u.device, dtype)

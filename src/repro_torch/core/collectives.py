@@ -4,7 +4,9 @@ A mesh is a `torch.distributed.DeviceMesh` with named dims (built by
 `launch/mesh.py`), or, for the pure geometry, any object whose `shape` is
 an {axis name: size} dict.  The fleet's env batches split over the mesh
 axes `FleetConfig.env_axes` (`core/orchestrator.py`); one env's element
-axis splits over `FleetConfig.elem_axis` (`ElemSplit`, `roll`).
+axis splits over `FleetConfig.elem_axis` (`ElemSplit`, `roll`), or over
+two mesh axes at once, x-slabs over one and y-slabs over the other
+(`PencilSplit`, the dry run's HIT cell and its counterpart on ranks).
 
 Collectives use the backend of the tensors' device: NCCL for CUDA tensors
 with one rank per card, gloo otherwise (CPU tensors, or several ranks
@@ -163,15 +165,26 @@ class ElemSplit:
     first waits for the device to reach it) and the bytes of the other
     ranks' slabs or sums each brings this rank: `halo_s` / `halo_bytes`
     for the face rolls and the box sums, `gather_s` / `gather_bytes` for
-    the gathers."""
+    the gathers; and its face rolls, `rolls`.  A group of one rank counts
+    none."""
 
     def __init__(self, group=None, rank: int = 0, size: int = 1):
         if size > 1 and group is None:
             raise ValueError(f"a split over {size} ranks needs their group")
         self.group = group if size > 1 else None
         self.rank, self.size = rank, size
+        self.reset()
+
+    def reset(self) -> None:
+        """Zero the counters."""
         self.halo_s = self.gather_s = 0.0
         self.halo_bytes = self.gather_bytes = 0
+        self.rolls = 0
+
+    def along(self, direction: int) -> "ElemSplit | None":
+        """The split of element direction `direction` (0 x, 1 y, 2 z):
+        this one for x, None (not split) for the others."""
+        return self if direction == 0 else None
 
     def slab(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's contiguous slabs of the whole array `x` along
@@ -188,6 +201,7 @@ class ElemSplit:
         t0 = time.perf_counter()
         out = roll(x, shifts, dim, self.group)
         self.halo_s += time.perf_counter() - t0
+        self.rolls += 1
         self.halo_bytes += x.element_size() * x.numel() * abs(shifts) \
             // x.shape[dim]
         return out
@@ -212,6 +226,78 @@ class ElemSplit:
         self.gather_s += time.perf_counter() - t0
         self.gather_bytes += x.element_size() * x.numel() * (self.size - 1)
         return out
+
+
+class PencilSplit:
+    """One env's state split over two groups at once: its x-slabs over
+    the ranks of `x` and its y-slabs over those of `y` (each an
+    `ElemSplit`; this rank holds one block of x-slabs by y-slabs), the
+    reference's (mx, my) pencil.  The solver routes each direction's face
+    rolls through `along(direction)`; a sum over the whole pencil is an
+    all-reduce over `x`, then one over `y` (no group spans both axes);
+    the whole env is a gather over `y`, then over `x`.  Either split may
+    be a group of one rank, which exchanges nothing.
+
+    `halo_s`, `halo_bytes`, `gather_s` and `gather_bytes` count both axes
+    (each axis's exchanges stay on its `ElemSplit`, with its `rolls`)."""
+
+    def __init__(self, x: ElemSplit, y: ElemSplit):
+        self.x, self.y = x, y
+
+    @property
+    def size(self) -> int:
+        return self.x.size * self.y.size
+
+    def along(self, direction: int) -> ElemSplit | None:
+        """The split of element direction `direction`: `x` for 0, `y` for
+        1, None (not split) for 2."""
+        return {0: self.x, 1: self.y}.get(direction)
+
+    def reset(self) -> None:
+        self.x.reset()
+        self.y.reset()
+
+    def slab(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of the whole array `t`: its x-slabs along
+        `dim`, its y-slabs along `dim + 1`."""
+        return self.y.slab(self.x.slab(t, dim), dim + 1)
+
+    def all_reduce_(self, t: torch.Tensor,
+                    op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """`t` overwritten in place with its reduction over the pencil."""
+        return self.y.all_reduce_(self.x.all_reduce_(t, op), op)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's block of `t` in place: the whole array, x along
+        `dim` and y along `dim + 1`."""
+        return self.x.gather(self.y.gather(t, dim + 1), dim)
+
+    @property
+    def halo_s(self) -> float:
+        return self.x.halo_s + self.y.halo_s
+
+    @property
+    def halo_bytes(self) -> int:
+        return self.x.halo_bytes + self.y.halo_bytes
+
+    @property
+    def gather_s(self) -> float:
+        return self.x.gather_s + self.y.gather_s
+
+    @property
+    def gather_bytes(self) -> int:
+        return self.x.gather_bytes + self.y.gather_bytes
+
+
+def pencil_split(mesh: DeviceMesh, x_axis: str = "mx",
+                 y_axis: str = "my") -> PencilSplit:
+    """The pencil of `mesh`'s dims `x_axis` (x-slabs) and `y_axis`
+    (y-slabs), each over its dim's group."""
+    def over(axis: str) -> ElemSplit:
+        return ElemSplit(mesh.get_group(axis), mesh.get_local_rank(axis),
+                         mesh_shape(mesh)[axis])
+
+    return PencilSplit(over(x_axis), over(y_axis))
 
 
 # --- a gloo group for DTensor on ranks that share a card ---------------------

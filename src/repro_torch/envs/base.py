@@ -139,8 +139,8 @@ def guard(u_next: torch.Tensor, u: torch.Tensor, state_ndim: int,
     """The solver blow-up guard: (u_next where every value of an env's
     state is finite, else that env's u; the per-env flag (...,)).  The
     state's last `state_ndim` axes are one env's.  With `split` (u this
-    rank's slabs) the flag is the minimum over the ranks, so every rank
-    reverts the same envs."""
+    rank's slabs, or block of a pencil) the flag is the minimum over every
+    rank of the split, so every rank reverts the same envs."""
     finite = torch.isfinite(u_next).flatten(start_dim=u_next.ndim
                                             - state_ndim).all(-1)
     if split is not None:

@@ -63,9 +63,10 @@ def plain_divergence(u: torch.Tensor, prim: tuple, grad_prim: torch.Tensor,
     """-div(F_adv - F_visc) over the three directions: split-form volume,
     LLF + BR1-central surfaces.  `jac` is a scalar or one per direction.
     Periodic, unless `wall = (g_lo, g_hi)` gives the numerical fluxes of the
-    two y domain faces (the channel's walls).  On a mesh split by x-slabs
-    (`split`) the x-faces cross ranks three times: the LLF traces of u, the
-    viscous-flux traces and the left faces of F*."""
+    two y domain faces (the channel's walls).  On a mesh split over ranks
+    (`split`: x-slabs, or x- and y-slabs) the faces of each split direction
+    cross ranks three times: the LLF traces of u, the viscous-flux traces
+    and the left faces of F*."""
     jacs = jac if isinstance(jac, (tuple, list)) else (jac,) * 3
     rhs = None
     for d in range(3):
@@ -98,9 +99,10 @@ def plain_forcing(u: torch.Tensor, vel: torch.Tensor, w: torch.Tensor, *,
                   split=None) -> torch.Tensor:
     """Lundgren linear forcing with the proportional TKE controller, from
     whole-box quadrature means with the GLL weights `w`.  On a mesh split
-    by x-slabs (`split`) the local quadrature sums (momentum 3, kinetic
-    energy 1 a row) are summed over the ranks in one all-reduce and
-    divided by the whole box's element count."""
+    over ranks (`split`: x-slabs, or an x by y pencil) the local quadrature
+    sums (momentum 3, kinetic energy 1 a row) are summed over every rank of
+    the split (one all-reduce, or one per axis of a pencil) and divided by
+    the whole box's element count, `split.size` blocks of the local one."""
     w2 = w.to(u.dtype) * 0.5  # reference [-1,1] -> unit mass
     n_elem_total = u.shape[-7] * u.shape[-6] * u.shape[-5]
     mom = u[..., 1:4]
@@ -128,9 +130,10 @@ def plain_rhs(u: torch.Tensor, cs_nodes: torch.Tensor, d_matrix: torch.Tensor,
               gradients=plain_gradients) -> torch.Tensor:
     """The three parts composed, in the dtype of the inputs.  `gradients`
     computes the gradient and nu_t (`solver.kernel_grad_nut` puts the
-    component kernels there); `split` is the x-slab split of a mesh split
-    over ranks, whose x-faces cross ranks 5 times (twice in the gradient,
-    three times in the divergence) and whose box sums once."""
+    component kernels there); `split` is the split of a mesh over ranks
+    (x-slabs, or an x by y pencil), whose faces cross ranks 5 times along
+    each split direction (twice in the gradient, three times in the
+    divergence) and whose box sums once (once per axis of a pencil)."""
     rho, vel, p, temp = equations.conservative_to_primitive(u)
     prim = (rho, vel, p, u[..., 4] / rho)
     q_prim = torch.cat([vel, temp[..., None]], dim=-1)

@@ -7,7 +7,9 @@ For every cell this script:
        (data 16, model 16) or 512 (pod 2, data 16, model 16)
        (`launch/mesh.make_production_mesh`) as DTensors of meta shards, by
        the reference's logical-axis rules (`specs.lower_cell`): nothing is
-       allocated, and the 35B cells never materialize;
+       allocated, and the 35B cells never materialize.  The HIT fleet cell
+       takes the reference's pencil mesh instead, (data 16, mx 4, my 4) or
+       (pod 2, data 16, mx 4, my 4) (`run_relexi_cell`);
     2. runs the cell's program once on rank 0's shards: the port's own
        `api.train_step` / `api.prefill` / `api.serve_step`, or one MDP
        step of an RL fleet, under a `hlo_analysis.Recorder`, which sees
@@ -224,20 +226,22 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
 
 
 def _fleet_cell(record: dict, mesh_shape, axes, device_type: str,
-                make_env, u_axes, r_axes, split_axis: str | None,
+                make_env, u_axes, r_axes, pencil_axes: tuple[str, str] | None,
                 n_envs: int, tag: str, save: bool) -> dict:
     """One synchronous MDP step (observe, the policy's mean action, the
     env's step with its reward) of a fleet of `n_envs` envs on a fake
     mesh, run shard-locally under `local_map`: the state's env axis split
     over the axes `u_axes[0]` (which must divide `n_envs`, as the
-    reference's sharding must), its x-element axis over `split_axis` (each
-    rank's x-slabs, `core.collectives.ElemSplit` over that mesh dim's
-    group) or not split.  `make_env()` -> (step(policy, u, e_dns, split)
-    -> (u_next, reward), the policy, e_dns's shape or None, one env's state
-    shape, substeps)."""
+    reference's sharding must), its x- and y-element axes over the mesh
+    dims `pencil_axes` (`core.collectives.pencil_split`) or not split
+    (None).  `make_env()` -> (step(policy,
+    u, e_dns, split) -> (u_next, reward), the policy, e_dns's shape or
+    None, one env's state shape, substeps).  The record carries the
+    split's `halo_bytes` / `gather_bytes` and the face rolls per mesh dim
+    the Recorder saw (`rolls_by_dim`)."""
     from torch.distributed.tensor.experimental import local_map
 
-    from ..core.collectives import ElemSplit
+    from ..core import collectives
     from ..parallel.sharding import placements
 
     n_chips = 1
@@ -265,12 +269,8 @@ def _fleet_cell(record: dict, mesh_shape, axes, device_type: str,
             like = torch.empty((n_envs,) + tuple(state_shape),
                                device="meta")
             u = rec.distribute(like, u_axes, mesh)
-
-            split = ElemSplit()
-            if split_axis is not None:
-                split = ElemSplit(mesh.get_group(split_axis),
-                                  mesh.get_local_rank(split_axis),
-                                  mesh_shape[axes.index(split_axis)])
+            split = (collectives.pencil_split(mesh, *pencil_axes)
+                     if pencil_axes else collectives.ElemSplit())
 
             def step(u_local):
                 return env_step(policy, u_local, e_dns, split)
@@ -286,10 +286,17 @@ def _fleet_cell(record: dict, mesh_shape, axes, device_type: str,
                     e_dns]
             rec.memory = hlo_analysis.memory_analysis(rec, args, list(out))
             t_run = time.perf_counter() - t0
+        rolls = {}
+        for dim, op, _ in rec.records:
+            if op == "send":
+                rolls[dim] = rolls.get(dim, 0) + 1
         record.update({"t_lower_s": round(t_lower, 2), "t_compile_s": None,
                        "t_run_s": round(t_run, 2), "n_substeps": n_sub,
+                       "mesh_shape": list(mesh_shape),
+                       "mesh_axes": list(axes),
                        "n_envs": n_envs, "halo_bytes": split.halo_bytes,
-                       "gather_bytes": split.gather_bytes})
+                       "gather_bytes": split.gather_bytes,
+                       "rolls_by_dim": rolls})
         record.update(_device_costs(rec, n_chips))
         record["flops_per_env"] = record["flops_per_dev"] * n_chips / n_envs
         record["calibration"] = {"K": n_sub, "eager": True}
@@ -302,25 +309,43 @@ def _fleet_cell(record: dict, mesh_shape, axes, device_type: str,
     return record
 
 
+def hit_mdp_step(policy, u: torch.Tensor, e_dns: torch.Tensor, cfg,
+                 split=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One synchronous MDP step of HIT envs, the program of the HIT fleet
+    cell: observe, the policy's mean action, `cfd/env.step` with its
+    reward.  With `split` (`core.collectives.ElemSplit` or `PencilSplit`)
+    u is this rank's block of every env, and the observation, the action
+    and the reward are the whole envs'.  Returns (u_next, reward)."""
+    from ..cfd import env as env_lib
+
+    obs = env_lib.observe(u, cfg, split)
+    action = policy.actor_mean(obs)
+    state = env_lib.EnvState(u=u, t_step=torch.zeros(
+        (u.shape[0],), dtype=torch.int32, device=u.device))
+    res = env_lib.step(state, action, cfg, e_dns, split)
+    return res.state.u, res.reward
+
+
 def run_relexi_cell(dof: int = 24, n_envs: int = 256, multi_pod: bool = False,
                     *, elem_axis: str | None = "model", tag: str = "",
                     save: bool = True, env: str | None = None,
                     data: int | None = None,
+                    pencil: tuple[int, int] | None = None,
                     device_type: str = "cuda") -> dict:
     """The paper's own cell: one synchronous MDP step of the HIT LES fleet
-    (the policy's mean action, the solver's Delta t_RL advance on the
-    staged plain assembly (`use_kernels=False`, as the reference's host
-    dry run counts it), the reward).  Envs split over (pod, data); with
-    `elem_axis`, each env's x-element axis over a 4-wide "mx" axis (the
-    port splits x-slabs only, `core.collectives.ElemSplit`, so a 4^3-
-    element env splits at most 4 ways: mesh (64, 4) ("data", "mx"), or (2,
-    64, 4) with the pod axis, where the reference's (mx 4, my 4) pencil
-    splits it 16 ways); without, envs over every axis of the production
-    mesh.  `env` names another registered HIT env (default
-    `hit_les_{dof}dof`), `data` the data axis's size (default: the
-    production mesh's ranks over the split)."""
+    (`hit_mdp_step`: the policy's mean action, the solver's Delta t_RL
+    advance on the staged plain assembly (`use_kernels=False`, as the
+    reference's host dry run counts it), the reward).  Envs split over
+    (pod, data); with `elem_axis`, each env's element grid over the
+    reference's (mx, my) pencil, x-slabs over "mx" and y-slabs over "my"
+    (`core.collectives.PencilSplit`): mesh (16, 4, 4) ("data", "mx",
+    "my"), or (2, 16, 4, 4) with the pod axis, so a 4^3-element env
+    splits 16 ways (the paper's 16 ranks per FLEXI); without, envs over
+    every axis of the production mesh.  `env` names another registered
+    HIT env (default `hit_les_{dof}dof`); `data` the data axis's size
+    (default: the 256 ranks over the pencil) and `pencil` the (mx, my)
+    sizes (default min(4, K) each) make smaller meshes."""
     from .. import envs
-    from ..cfd import env as env_lib
     from ..cfd import spectra
     from ..core import policy as policy_lib
 
@@ -335,40 +360,36 @@ def run_relexi_cell(dof: int = 24, n_envs: int = 256, multi_pod: bool = False,
     n, k = cfg.n_poly + 1, cfg.n_elem
     env_axes = ("pod", "data") if multi_pod else ("data",)
     if elem_axis:
-        width = min(4, k)
-        shape = pods + (data or 256 // width, width)
-        axes = env_axes + ("mx",)
-        u_axes, r_axes, split_axis = (env_axes, "mx"), (env_axes,), "mx"
-        record.update(elem_ranks=width, reason=(
-            f"the port splits an env by its x-slabs only, at most "
-            f"{k} ranks for {k} elements along x; the reference's "
-            f"(mx 4, my 4) pencil splits it 16 ways"))
+        mx, my = pencil or (min(4, k), min(4, k))
+        if k % mx or k % my:
+            raise ValueError(f"a pencil of {mx} x {my} ranks does not "
+                             f"divide {k} elements a direction")
+        shape = pods + (data or 256 // (mx * my), mx, my)
+        axes = env_axes + ("mx", "my")
+        u_axes, r_axes = (env_axes, "mx", "my"), (env_axes,)
+        pencil_axes = ("mx", "my")
+        record["elem_ranks"] = mx * my
     else:
         shape = pods + ((data, 1) if data else (16, 16))
         axes = env_axes + ("model",)
         u_axes = r_axes = (env_axes + ("model",),)
-        split_axis = None
+        pencil_axes = None
 
     def make_env():
         pcfg = policy_lib.PolicyConfig(n_nodes=n, cs_max=cfg.cs_max)
         policy = policy_lib.Policy(pcfg)
 
         def mdp(policy, u, e_dns, split):
-            obs = env_lib.observe(u, cfg, split)
-            action = policy.actor_mean(obs)
-            state = env_lib.EnvState(u=u, t_step=torch.zeros(
-                (u.shape[0],), dtype=torch.int32, device=u.device))
-            res = env_lib.step(state, action, cfg, e_dns, split)
-            return res.state.u, res.reward
+            return hit_mdp_step(policy, u, e_dns, cfg, split)
 
         e_len = len(spectra.reference_spectrum(cfg))
         return mdp, policy, (e_len,), (k, k, k, n, n, n, 5), cfg.n_substeps
 
     record = _fleet_cell(record, shape, axes, device_type, make_env, u_axes,
-                         r_axes, split_axis, n_envs, tag, False)
+                         r_axes, pencil_axes, n_envs, tag, False)
     if save:
-        record["shape"] += (f"_elem{record.get('elem_ranks', 4)}"
-                            if elem_axis else "_noelem")
+        record["shape"] += (f"_elem{record['elem_ranks']}" if elem_axis
+                            else "_noelem")
         _save(record, tag)
     return record
 

@@ -36,8 +36,13 @@ reads as its global count).  What a `Recorder` holds:
                     functional collectives DTensor issues (its
                     all-to-all that moves a shard between dims on a
                     CUDA mesh included) and the c10d ones `ElemSplit`
-                    calls (its face rolls' send and recv).  Meta tensors never reach a process group: the
-                    ops' meta kernels return without calling it.
+                    calls (its face rolls' send and recv, its sums'
+                    all-reduce, its gathers), each under the mesh dim
+                    of its group: a `PencilSplit`'s x exchanges under
+                    "mx", its y exchanges under "my", and a sum over the
+                    pencil as one all-reduce on each.  Meta tensors
+                    never reach a process group: the ops' meta kernels
+                    return without calling it.
 
 `collective_bytes` applies the reference's per-op convention to the
 records (all-gather: its output; reduce-scatter: its input; all-reduce: 2 x

@@ -16,8 +16,10 @@ Pins:
     the device, the port's a Python int (ROADMAP queue C, C10);
   * the full-depth count of danube-reduced equals the reference's
     extrapolation from 1 and 2 layer groups, exactly;
-  * the split HIT cell's halo bytes, worked out by hand in
-    `test_reduced_fleet_cells_and_the_split_halo_by_hand`.
+  * the HIT cell's pencil halo, sums and gathers, worked out by hand in
+    `test_reduced_fleet_cells_and_the_split_halo_by_hand`, and its
+    production cell's mesh, name and u's argument bytes in
+    `test_production_hit_cell_is_the_reference_pencil`.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from repro_torch import configs
+from repro_torch import envs as tenvs
 from repro_torch.configs.shapes import SHAPES
 from repro_torch.fleet import scheduler
 from repro_torch.kernels import flash_attention, linear_scan, rhs
@@ -275,27 +278,45 @@ def test_rwkv6_serves_where_its_five_mixes_do_not_split(kind):
 def test_reduced_fleet_cells_and_the_split_halo_by_hand(tmp_path,
                                                         monkeypatch):
     """hit_les_reduced (N = 3: n = 4 nodes, 2^3 elements), 4 envs, on a
-    (data 2, mx 2) mesh: each rank holds 2 envs' x-slab of 1 element.
-    An RHS rolls five x-face slabs over the split (the gradient's traces
-    and left faces of (v, T), 4 channels each; the divergence's traces of
-    u and of the viscous flux and its left faces, 5 channels each: 23
-    channel-slabs) of 2 envs x 2 x 2 elements x 4 x 4 face nodes = 128
-    values each, in float32; an RL step runs 5 substeps of 5 stages."""
+    (data 2, mx 2, my 2) mesh, the reference's pencil at its smallest:
+    each rank holds 2 envs' block of 1 x 1 x 2 elements.  An RHS rolls
+    five x-face slabs over "mx" and five y-face slabs over "my" (the
+    gradient's traces and left faces of (v, T), 4 channels each; the
+    divergence's traces of u and of the viscous flux and its left faces,
+    5 channels each: 23 channel-slabs) of 2 envs x 1 x 2 elements x 4 x 4
+    face nodes = 64 values each, in float32; an RL step runs 5 substeps
+    of 5 stages.  A sum over the pencil is one all-reduce over each axis,
+    each op counted once by the reference's convention (2 x its input);
+    the whole velocity is gathered over "my", then over "mx"."""
     monkeypatch.setattr(dryrun, "ARTIFACT_DIR", str(tmp_path))
     split = dryrun.run_relexi_cell(env="hit_les_reduced", n_envs=4, data=2,
                                    device_type="cpu")
     assert split["status"] == "ok", split.get("traceback")
+    assert split["mesh_shape"] == [2, 2, 2]
+    assert split["mesh_axes"] == ["data", "mx", "my"]
     n_rhs = split["n_substeps"] * 5
     assert n_rhs == 25
-    rolled = n_rhs * 23 * 128 * 4
-    # the forcing's one all-reduce an RHS of (2 envs, 4 sums) and the
-    # guard's of (2,) int32 once a step, each from the other rank
+    rolled = n_rhs * 23 * 64 * 4  # each axis
+    assert split["rolls_by_dim"] == {"mx": n_rhs * 5, "my": n_rhs * 5}
+    assert split["collective_bytes_per_dev"]["collective-permute"] == \
+        2 * rolled
+    assert split["collective_counts_raw"]["collective-permute"] == \
+        2 * n_rhs * 5
+    # over each axis, the forcing's all-reduce an RHS of (2 envs, 4 sums)
+    # and the guard's of (2,) int32 once a step, each from the other rank
     summed = n_rhs * 2 * 4 * 4 + 2 * 4
-    assert split["collective_bytes_per_dev"]["collective-permute"] == rolled
-    assert split["collective_counts_raw"]["collective-permute"] == n_rhs * 5
-    assert split["halo_bytes"] == rolled + summed
-    assert split["collective_bytes_per_dev"]["all-reduce"] == 2 * summed
-    assert split["elem_ranks"] == 2 and split["shape"].endswith("_elem2")
+    assert split["halo_bytes"] == 2 * (rolled + summed)
+    assert split["collective_bytes_per_dev"]["all-reduce"] == 2 * 2 * summed
+    assert split["collective_counts_raw"]["all-reduce"] == 2 * (n_rhs + 1)
+    # observe's and the step's gathers of the velocity (3 channels of 4^3
+    # nodes): 2 envs x 1 x 1 x 2 elements from "my", then 2 x 1 x 2 x 2
+    # from "mx"
+    vel = 3 * 64 * 4
+    assert split["gather_bytes"] == 2 * (2 * 2 + 2 * 4) * vel
+    assert split["collective_bytes_per_dev"]["all-gather"] == \
+        2 * 2 * (2 * 2 + 2 * 4) * vel
+    assert split["elem_ranks"] == 4 and split["shape"].endswith("_elem4")
+    assert "reason" not in split
     chan = dryrun.run_channel_cell(4, variant="channel_wm_reduced", data=4,
                                    device_type="cpu")
     assert chan["status"] == "ok", chan.get("traceback")
@@ -315,6 +336,46 @@ def test_reduced_fleet_cells_and_the_split_halo_by_hand(tmp_path,
     uneven = dryrun.run_channel_cell(4, variant="channel_wm_reduced",
                                      data=8, save=False, device_type="cpu")
     assert uneven["status"] == "fail" and "do not split" in uneven["error"]
+
+
+@pytest.mark.parametrize("multi_pod", (False, True), ids=("single", "multi"))
+def test_production_hit_cell_is_the_reference_pencil(tmp_path, monkeypatch,
+                                                     multi_pod):
+    """`run_relexi_cell`'s production cell: hit_les_24dof x 256 envs on the
+    reference's (16, 4, 4) ("data", "mx", "my") mesh, or (2, 16, 4, 4) with
+    "pod", each env's 4^3 elements over 16 ranks, saved as
+    fleet_256_elem16; u's argument bytes per device are the rank's 16 (8
+    over two pods) envs x 4 elements x 6^3 nodes x 5 channels x 4 B.  The
+    RL interval is cut to one substep for time (the mesh, the name and
+    the argument bytes do not depend on it)."""
+    monkeypatch.setattr(dryrun, "ARTIFACT_DIR", str(tmp_path))
+    make = tenvs.make
+    monkeypatch.setattr(tenvs, "make", lambda name, **kw: make(
+        name, dt_rl=make(name).cfg.dt, **kw))
+    u_bytes = []
+    analysis = hlo_analysis.memory_analysis
+
+    def kept(rec, args, out, donated=()):
+        u = args[0]
+        assert hlo_analysis.storage_keys(u) <= rec.read
+        u_bytes.append(hlo_analysis.local_bytes(u))
+        return analysis(rec, args, out, donated)
+
+    monkeypatch.setattr(hlo_analysis, "memory_analysis", kept)
+    rec = dryrun.run_relexi_cell(multi_pod=multi_pod, device_type="cpu")
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["n_substeps"] == 1
+    assert rec["mesh_shape"] == ([2] if multi_pod else []) + [16, 4, 4]
+    assert rec["mesh_axes"] == (["pod"] if multi_pod else []) + [
+        "data", "mx", "my"]
+    assert rec["shape"] == "fleet_256_elem16" and rec["elem_ranks"] == 16
+    assert rec["mesh"] == ("multi" if multi_pod else "single")
+    assert "reason" not in rec
+    assert u_bytes == [(8 if multi_pod else 16) * 4 * 6**3 * 5 * 4]
+    assert u_bytes[0] == (138_240 if multi_pod else 276_480)
+    assert rec["rolls_by_dim"] == {"mx": 5 * 5, "my": 5 * 5}
+    assert (tmp_path / f"{rec['mesh']}_relexi-hit24_fleet_256_elem16.json"
+            ).exists()
 
 
 def test_cli_writes_the_reference_keys_and_leaves_no_group(tmp_path):
